@@ -1,0 +1,157 @@
+"""The port's own host-side modules against their JAX-package counterparts:
+the GGUF reader and writer (tts_tpu_torch.core), the BPE tokenizer, the WAV
+and AIFF encoders, and the speech server, each given the same inputs."""
+
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")  # the reference; absent where only the port runs
+
+from tts_tpu.apps import server as jserver  # noqa: E402
+from tts_tpu.core import gguf as jgguf  # noqa: E402
+from tts_tpu.runtime.api import GenerationConfig as JaxGenerationConfig  # noqa: E402
+from tts_tpu.text.tokenizers import BPETokenizer as JaxBPETokenizer  # noqa: E402
+from tts_tpu.utils import audio as jaudio  # noqa: E402
+from tts_tpu_torch.apps import server as tserver  # noqa: E402
+from tts_tpu_torch.convert.builder_orpheus import orpheus_kv  # noqa: E402
+from tts_tpu_torch.core import gguf as tgguf  # noqa: E402
+from tts_tpu_torch.runtime.api import GenerationConfig  # noqa: E402
+from tts_tpu_torch.text.tokenizers import BPETokenizer  # noqa: E402
+from tts_tpu_torch.utils import audio as taudio  # noqa: E402
+
+TENSOR_TYPES = ["F32", "F16", "BF16", "Q8_0", "Q5_0", "Q4_0"]
+KV = {"general.architecture": "orpheus", "u32": 7, "i64": -3, "big": 2**40, "f32": 0.25,
+      "flag": True, "name": "tts", "strings": ["a", "Ġb", "ü"], "floats": [0.5, -1.5],
+      "ints": [1, 2, 3], "i32s": np.arange(4, dtype=np.int32),
+      "f32s": np.linspace(0, 1, 5, dtype=np.float32), "u32s": np.arange(3, dtype=np.uint32),
+      "i64s": np.arange(-2, 2, dtype=np.int64), "f64s": np.array([0.1, 0.2])}
+EXPLICIT = [("u8", 200, "UINT8"), ("i8", -5, "INT8"), ("u16", 60000, "UINT16"),
+            ("i16", -300, "INT16"), ("f64", 0.125, "FLOAT64"), ("u64", 5, "UINT64")]
+
+
+def _write(module, path, ggml_type, rng):
+    """One GGUF of every kv type and a [64, 96] tensor of `ggml_type`, plus a
+    raw pre-quantized Q8_0 tensor, by `module`'s writer."""
+    w = module.GGUFWriter(path)
+    for k, v in KV.items():
+        w.add_kv(k, v)
+    for k, v, vtype in EXPLICIT:
+        w.add_kv(k, v, module.GGUFValueType[vtype])
+    arr = rng.standard_normal((64, 96)).astype(np.float32)
+    w.add_tensor("w", arr, module.GGMLType[ggml_type])
+    w.add_tensor("bias", arr[0].astype(np.float16))
+    w.add_tensor("ids", np.arange(5, dtype=np.int32))
+    raw = np.frombuffer(module.quant.quantize_q8_0(arr[:2]), np.uint8)
+    w.add_raw_tensor("raw", (96, 2), module.GGMLType.Q8_0, raw)
+    w.write()
+    return path
+
+
+@pytest.mark.parametrize("ggml_type", TENSOR_TYPES)
+def test_gguf_reader_reads_what_jax_wrote(tmp_path, ggml_type):
+    """Tensor for tensor (raw bytes, dequantized values, int8 views) and key
+    for key, the port's reader sees the file as the JAX package's does."""
+    path = _write(jgguf, tmp_path / "m.gguf", ggml_type, np.random.default_rng(0))
+    with jgguf.GGUFFile(path) as want, tgguf.GGUFFile(path) as got:
+        assert got.architecture == want.architecture == "orpheus"
+        assert got.kv.keys() == want.kv.keys()
+        for k, v in want.kv.items():
+            np.testing.assert_array_equal(np.asarray(got.kv[k]), np.asarray(v), err_msg=k)
+            assert type(got.kv[k]) is type(v)
+        assert list(got.tensors) == list(want.tensors)
+        for name, wt in want.tensors.items():
+            gt = got.tensors[name]
+            assert (gt.shape, gt.dims, int(gt.ggml_type)) == (wt.shape, wt.dims, int(wt.ggml_type))
+            np.testing.assert_array_equal(gt.raw(), wt.raw())
+            np.testing.assert_array_equal(gt.to_numpy(), wt.to_numpy())
+            if wt.ggml_type.name in ("Q8_0", "Q5_0", "Q4_0"):
+                for a, b in zip(gt.to_int8_scales(), wt.to_int8_scales()):
+                    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("ggml_type", TENSOR_TYPES)
+def test_gguf_writer_is_byte_identical(tmp_path, ggml_type):
+    want = _write(jgguf, tmp_path / "jax.gguf", ggml_type, np.random.default_rng(1))
+    got = _write(tgguf, tmp_path / "port.gguf", ggml_type, np.random.default_rng(1))
+    assert got.read_bytes() == want.read_bytes()
+
+
+@pytest.mark.parametrize("text", ["hello", "hi there, zoe", "a  b   c", "naïve café!", ""])
+def test_bpe_tokenizer_gives_jax_ids(text):
+    kv = orpheus_kv(1, 64, 1, 1, 64, 300)
+    kv["tokenizer.ggml.tokens"] += ["th", "the", "Ġth", "Ġthe", "er", "ere"]
+    kv["tokenizer.ggml.merges"] += ["t h", "th e", "Ġ th", "Ġth e", "e r", "er e"]
+    assert (BPETokenizer.from_gguf_kv(kv).tokenize(text)
+            == JaxBPETokenizer.from_gguf_kv(kv).tokenize(text))
+
+
+@pytest.mark.parametrize("fmt", ["wav16", "wav32", "aiff"])
+def test_audio_encoders_give_jax_bytes(fmt):
+    audio = np.random.default_rng(2).uniform(-1.2, 1.2, 2001).astype(np.float32)
+    sr = 24000
+    if fmt == "aiff":
+        assert taudio.encode_aiff(audio, sr) == jaudio.encode_aiff(audio, sr)
+    else:
+        bits = int(fmt[3:])
+        assert taudio.encode_wav(audio, sr, bits) == jaudio.encode_wav(audio, sr, bits)
+
+
+@pytest.fixture(scope="module")
+def servers():
+    """The JAX package's server and the port's, each serving test:dummy on a
+    free port; yields {"jax": port, "port": port}."""
+    jstate = jserver.ServerState({"dummy": "test:dummy"}, JaxGenerationConfig(), 1)
+    tstate = tserver.ServerState({"dummy": "test:dummy"}, GenerationConfig(), 1, device="cpu")
+    srvs = {"jax": jserver.ThreadingHTTPServer(("127.0.0.1", 0), jserver.make_handler(jstate)),
+            "port": tserver.make_server(tstate, port=0)}
+    for s in srvs.values():
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    yield {k: s.server_address[1] for k, s in srvs.items()}
+    for s in srvs.values():
+        s.shutdown()
+        s.server_close()
+    tserver.stop_workers(tstate)
+
+
+def _call(port, method, path, payload):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+@pytest.mark.parametrize("method,path,payload", [
+    ("POST", "/v1/audio/speech", {"input": "ab"}),
+    ("POST", "/v1/audio/speech", {"input": "a", "response_format": "aiff"}),
+    ("POST", "/v1/audio/speech", {"input": "ab", "response_format": "pcm"}),
+    ("POST", "/v1/audio/speech", {}),
+    ("POST", "/v1/audio/speech", {"input": ""}),
+    ("POST", "/v1/audio/speech", {"input": "a", "response_format": "mp3"}),
+    ("POST", "/v1/audio/speech", {"input": "a", "model": "nope"}),
+    ("POST", "/v1/audio/speech", {"input": "a", "top_k": "many"}),
+    ("POST", "/v1/audio/conditional-prompt", {"prompt": "x", "text_encoder_path": "t"}),
+    ("POST", "/nowhere", {}),
+    ("GET", "/v1/models", None),
+    ("GET", "/v1/audio/voices", None),
+    ("GET", "/health", None),
+    ("GET", "/", None),
+], ids=lambda v: json.dumps(v) if isinstance(v, dict) else None)
+def test_server_answers_as_jax_server(servers, method, path, payload):
+    """Status, content type and body agree: audio byte for byte, error JSON
+    key for key."""
+    got = _call(servers["port"], method, path, payload)
+    want = _call(servers["jax"], method, path, payload)
+    assert got[:2] == want[:2]
+    if want[1] == "application/json":
+        assert json.loads(got[2]) == json.loads(want[2])
+    else:
+        assert got[2] == want[2]

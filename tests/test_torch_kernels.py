@@ -33,6 +33,15 @@ def rand_q8(K, N, device, seed):
     return wq, sc
 
 
+def rand_q4(K, N, device, seed):
+    """Packed int4 weights [K/2, N] (every byte value: two random signed
+    nibbles) and f16 block scales [K/32, N] of a Q4_0 linear."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    wq4 = torch.randint(-128, 128, (K // 2, N), generator=g, dtype=torch.int8).to(device)
+    sc = (torch.rand((K // 32, N), generator=g) * 2e-2 + 1e-3).half().to(device)
+    return wq4, sc
+
+
 def rand_attention(pos, quant, device):
     """q [24, 128] f32 and a [8, 3584, 128] cache (bf16, or int8 + scales)
     whose rows past pos hold NaN, as a reused cache may."""
@@ -88,6 +97,35 @@ def test_qgemm_int8_matches_plain(cuda, M, K, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
+def test_qgemv_int4_matches_plain(cuda, K, N):
+    """Both sum the same exact bf16(x) * int4 products in f32, in another
+    order (split-K, two nibble planes, per-block scaling): bound 1e-4."""
+    wq4, sc = rand_q4(K, N, cuda, K + N)
+    x = torch.randn((1, K), device=cuda)
+    n = tq.qgemv_int4.launches
+    got = tq.qgemv_int4(x, wq4, sc)
+    torch.cuda.synchronize()
+    assert tq.qgemv_int4.launches == n + 1
+    assert rel_err(got, tq.qgemv_int4_plain(x, wq4, sc)) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 8, 32, 77, 1024])
+@pytest.mark.parametrize("K,N", [ORPHEUS_SHAPES[i] for i in (0, 2, 3, 4)])
+def test_qgemm_int4_matches_plain(cuda, M, K, N):
+    """f32 FMA over exactly dequantized int4 weights, the two nibble planes
+    per k-tile, another summation order: relative error bound 1e-4."""
+    wq4, sc = rand_q4(K, N, cuda, K + N + M)
+    x = torch.randn((M, K), device=cuda)
+    n = tq.qgemm_int4.launches
+    got = tq.qgemm_int4(x, wq4, sc)
+    torch.cuda.synchronize()
+    assert tq.qgemm_int4.launches == n + 1
+    assert rel_err(got, tq.qgemm_int4_plain(x, wq4, sc)) < 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("pos", [0, 511, 512, 2047, 3583])
 def test_flash_decode_matches_plain(cuda, quant, pos):
@@ -118,6 +156,15 @@ def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError):
         tq.qgemm_int8(x.repeat(2, 1), wq[:, :500].contiguous(), sc[:, :500].contiguous())
     assert tq.qgemv_int8.launches == n
+    wq4, sc4 = rand_q4(K, N, cuda, 0)
+    n = tq.qgemv_int4.launches
+    with pytest.raises(ValueError):
+        tq.qgemv_int4(x, wq4, sc4[:-1].contiguous())                  # scales not [K/32, N]
+    with pytest.raises(ValueError):
+        tq.qgemv_int4(x[:, :160], wq4[:80].contiguous(), sc4[:5].contiguous())  # K % 64
+    with pytest.raises(ValueError):
+        tq.qgemm_int4(x.repeat(2, 1), wq4, sc4.float())                # scales not f16
+    assert tq.qgemv_int4.launches == n
     q, k, v, _, _ = rand_attention(5, False, cuda)
     with pytest.raises(ValueError):
         ta.flash_decode(q, k, v, torch.tensor([5], device=cuda))      # pos must be int32

@@ -1,6 +1,8 @@
-"""The port runs where JAX is not installed: in a fresh interpreter with every
-`import jax` made to fail, import each module of tts_tpu_torch (and the
-server app), then load the tiny Q8_0 model and synthesize on the CPU."""
+"""The port runs where neither JAX nor the JAX package can be imported: in a
+fresh interpreter whose import hook refuses `jax`, `jaxlib` and `tts_tpu`
+(and every submodule of them), import each module of tts_tpu_torch, serve
+test:dummy through the port's server, then write a tiny Q8_0 or Q4_0 model
+with the port's own builder, load it and synthesize on the CPU."""
 
 import os
 import subprocess
@@ -15,34 +17,61 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import sys
-    sys.modules["jax"] = None          # any `import jax` now raises ImportError
-    sys.modules["jaxlib"] = None
-    import dataclasses, importlib, pkgutil
+
+    BLOCKED = ("jax", "jaxlib", "tts_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked")
+
+    sys.meta_path.insert(0, Refuse())
+    import dataclasses, importlib, json, pkgutil, threading, urllib.request
     import numpy as np
     import torch
     torch.set_num_threads(1)
     import tts_tpu_torch
-    import tts_tpu_torch.apps.server
     for m in pkgutil.walk_packages(tts_tpu_torch.__path__, "tts_tpu_torch."):
         importlib.import_module(m.name)
-    from torch_tiny import CTX, GEN, write_tiny_q8_orpheus
-    from tts_tpu.runtime.api import GenerationConfig
+    from torch_tiny import CTX, GEN, TINY
+    from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
+    from tts_tpu_torch.convert.builder_orpheus import write_random_orpheus
     from tts_tpu_torch.models.registry import runner_from_file
-    path = write_tiny_q8_orpheus(sys.argv[1], head_rows=4096)
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    state = ServerState({"dummy": "test:dummy"}, GenerationConfig(), 1, device="cpu")
+    srv = make_server(state, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/v1/audio/speech",
+                                 data=json.dumps({"input": "ab"}).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        wav = r.read()
+    srv.shutdown()
+    stop_workers(state)
+    print("WAV", r.status, len(wav))
+
+    qtype = sys.argv[2]
+    path = write_random_orpheus(sys.argv[1], qtype=qtype, **TINY, vocab=156940,
+                                snac_embd=96, snac_channels=(48, 24, 12, 6))
     r = runner_from_file(str(path), device="cpu")
     r.cfg = dataclasses.replace(r.cfg, max_context_length=CTX, max_generation_size=GEN)
+    key = "wq4" if qtype == "Q4_0" else "wq"
+    assert key in r.params["layers"][0]["qkv"] and key in r.params["head"]
     resp = r.generate("hi", GenerationConfig(seed=0, max_tokens=15, top_k=50))
     loaded = sorted(m for m, v in sys.modules.items()
-                    if m.split(".")[0] in ("jax", "jaxlib") and v is not None)
-    print("AUDIO", len(resp.audio), bool(np.isfinite(resp.audio).all()), "JAX", loaded)
+                    if m.split(".")[0] in BLOCKED and v is not None)
+    print("AUDIO", len(resp.audio), bool(np.isfinite(resp.audio).all()), "BLOCKED", loaded)
 """)
 
 
-def test_port_runs_without_jax(tmp_path):
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+def test_port_runs_without_jax(tmp_path, qtype):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.path.join(ROOT, "tests"), os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path / "tiny.gguf")],
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path / "tiny.gguf"), qtype],
                           capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    line = next(l for l in proc.stdout.splitlines() if l.startswith("AUDIO"))
-    assert line == f"AUDIO {(15 // 7) * 4 * 512} True JAX []", line
+    lines = proc.stdout.splitlines()
+    # test:dummy: 2 characters -> 2 s of 44.1 kHz 16-bit audio + a 44-byte header
+    assert f"WAV 200 {44 + 2 * 44100 * 2}" in lines, lines
+    assert f"AUDIO {(15 // 7) * 4 * 512} True BLOCKED []" in lines, lines

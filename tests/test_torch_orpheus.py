@@ -1,7 +1,8 @@
 """The slice end to end: the port's Orpheus (tts_tpu_torch.models.orpheus) on
-a tiny Q8_0 GGUF against the JAX package on the same file, in one process.
-The JAX side runs its Pallas kernels in interpret mode (head size 128 and a
-512-position cache put decode on its flash kernel)."""
+a tiny Q8_0 or Q4_0 GGUF against the JAX package on the same file, in one
+process, each package reading it with its own GGUF reader.  The JAX side runs
+its Pallas kernels in interpret mode (head size 128 and a 512-position cache
+put decode on its flash kernel)."""
 
 import dataclasses
 import io
@@ -20,15 +21,17 @@ pytest.importorskip("jax")  # the reference; absent where only the port runs
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_tiny import CTX, GEN, write_tiny_q8_orpheus  # noqa: E402
+from torch_tiny import CTX, GEN, QTYPES, write_tiny_orpheus  # noqa: E402
 from tts_tpu.codecs import snac as jsnac  # noqa: E402
-from tts_tpu.core.gguf import GGUFFile  # noqa: E402
+from tts_tpu.core.gguf import GGUFFile as JaxGGUFFile  # noqa: E402
 from tts_tpu.models import orpheus as jo  # noqa: E402
 from tts_tpu.models.registry import runner_from_file as jax_runner_from_file  # noqa: E402
-from tts_tpu.runtime.api import GenerationConfig, TTSError  # noqa: E402
 from tts_tpu_torch.codecs import snac as tsnac  # noqa: E402
+from tts_tpu_torch.convert.builder_orpheus import write_random_orpheus  # noqa: E402
+from tts_tpu_torch.core.gguf import GGUFFile  # noqa: E402
 from tts_tpu_torch.models import orpheus as to  # noqa: E402
 from tts_tpu_torch.models.registry import runner_from_file  # noqa: E402
+from tts_tpu_torch.runtime.api import GenerationConfig, TTSError  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -43,11 +46,12 @@ TIE = 4e-3
 
 def _models(path):
     """(jax cfg, jax params, port cfg, port params) from one GGUF by each
-    package's own loader; the cache is cut to 64 + 448 = 512."""
-    with GGUFFile(path) as f:
+    package's own reader and loader; the cache is cut to 64 + 448 = 512."""
+    with JaxGGUFFile(path) as f:
         jcfg = dataclasses.replace(jo.OrpheusConfig.from_gguf_kv(f.kv),
                                    max_context_length=CTX, max_generation_size=GEN)
         jparams = jo.load_orpheus_params(dict(f.tensors), jcfg)
+    with GGUFFile(path) as f:
         tcfg = dataclasses.replace(to.OrpheusConfig.from_gguf_kv(f.kv),
                                    max_context_length=CTX, max_generation_size=GEN)
         tparams = to.load_orpheus_params(dict(f.tensors), tcfg)
@@ -55,21 +59,26 @@ def _models(path):
 
 
 @pytest.fixture(scope="module")
-def gguf(tmp_path_factory):
-    """The tiny model with a 4096-row head (fast JAX decode)."""
-    path = tmp_path_factory.mktemp("orpheus") / "tiny_q8_head4096.gguf"
-    return str(write_tiny_q8_orpheus(path, head_rows=4096))
+def tiny(tmp_path_factory):
+    """tiny(qtype, head) -> (path, models) of the tiny model with Q8_0 or
+    Q4_0 linears and a 4096-row head (fast JAX decode) or the real 156,940
+    rows (head="full", padded to 157,696); each is built on first use."""
+    built = {}
+
+    def get(qtype, head="4096"):
+        if (qtype, head) not in built:
+            path = tmp_path_factory.mktemp("orpheus") / f"tiny_{qtype}_{head}.gguf"
+            path = str(write_tiny_orpheus(path, head_rows=None if head == "full" else 4096,
+                                          qtype=qtype))
+            built[qtype, head] = path, _models(path)
+        return built[qtype, head]
+    return get
 
 
 @pytest.fixture(scope="module")
-def models(gguf):
-    return _models(gguf)
-
-
-@pytest.fixture(scope="module")
-def full_head_models(tmp_path_factory):
-    """The tiny model with the real 156,940-row head (padded to 157,696)."""
-    return _models(write_tiny_q8_orpheus(tmp_path_factory.mktemp("orpheus") / "tiny_q8.gguf"))
+def gguf(tiny):
+    """The tiny Q8_0 model with a 4096-row head."""
+    return tiny("Q8_0")[0]
 
 
 @partial(jax.jit, static_argnums=(1,))
@@ -115,15 +124,19 @@ def _assert_greedy_equal(logits, want) -> int:
     return int(differ[0]) if len(differ) else len(want)
 
 
-def test_loader_matches_params_from_jax(full_head_models):
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_loader_matches_params_from_jax(tiny, qtype):
     """The port's GGUF loader gives exactly the tensors that params_from_jax
-    makes of the JAX loader's output (int8 weights, f16 scales from the
-    uint16 bits, bf16 embedding, f32 norms; fused qkv/gateup, the lm_head
-    padded to a multiple of 1024)."""
-    _, jparams, _, tparams = full_head_models
+    makes of the JAX loader's output (int8 or packed int4 weights, f16
+    scales from the uint16 bits, bf16 embedding, f32 norms; fused
+    qkv/gateup, the lm_head padded to a multiple of 1024)."""
+    _, jparams, _, tparams = tiny(qtype, "full")[1]
     from_jax = to.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     assert set(tparams["layers"][0]) == {"in_norm", "qkv", "o", "post_norm", "gateup", "down"}
-    assert tparams["head"]["wq"].shape == (256, 157696)
+    if qtype == "Q4_0":
+        assert tparams["head"]["wq4"].shape == (128, 157696)
+    else:
+        assert tparams["head"]["wq"].shape == (256, 157696)
     a, b = _flatten(tparams, []), _flatten(from_jax, [])
     assert len(a) == len(b)
     for x, y in zip(a, b):
@@ -131,15 +144,15 @@ def test_loader_matches_params_from_jax(full_head_models):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("qtype", QTYPES)
 @pytest.mark.parametrize("head,kv", [("full", "bf16"), ("4096", "bf16"), ("4096", "int8")])
-def test_prefill_and_decode_logits_match_jax(request, head, kv):
+def test_prefill_and_decode_logits_match_jax(tiny, qtype, head, kv):
     """Exact-length prefill, then 8 teacher-forced decode steps (the port's
     flash-decode vs JAX's flash kernel), bf16 or int8 KV cache in both.
     Activations are bf16 on both sides, so a last-bit f32 difference can flip
     a bf16 rounding and carry through the layers: logits (spanning about
     +-0.2) agree to atol 2e-3."""
-    models = request.getfixturevalue("full_head_models" if head == "full" else "models")
-    jcfg, jparams, tcfg, tparams = models
+    jcfg, jparams, tcfg, tparams = tiny(qtype, head)[1]
     jcfg = dataclasses.replace(jcfg, kv_quant=kv == "int8")
     tcfg = dataclasses.replace(tcfg, kv_quant=kv == "int8")
     T = len(PROMPT)
@@ -157,10 +170,11 @@ def test_prefill_and_decode_logits_match_jax(request, head, kv):
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
 
 
-def test_greedy_decode_loop_matches_jax(models):
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_greedy_decode_loop_matches_jax(tiny, qtype):
     """Sequential greedy decode after the same prefill: the port's loop emits
     JAX's tokens, up to the first numerical tie."""
-    jcfg, jparams, tcfg, tparams = models
+    jcfg, jparams, tcfg, tparams = tiny(qtype)[1]
     T = len(PROMPT)
     jcache = jo.init_kv_cache(jcfg)
     jl, jcache = jo.orpheus_prefill(jparams, jcfg, jnp.asarray(PROMPT, jnp.int32),
@@ -204,28 +218,55 @@ def test_decode_loop_stops_at_the_stop_token(monkeypatch, lookahead, limit):
     assert state["last"].tolist() == [out[-1]]
 
 
-def test_loader_refuses_q4_0(tmp_path, rng):
-    """Q4_0 linears need the int4 kernels, which are not ported: the loader
-    raises instead of running them through the int8 ones."""
-    from tts_tpu.core.gguf import GGMLType, GGUFWriter
+def test_loader_packs_q4_0_to_int4(tmp_path):
+    """A Q4_0 GGUF with Orpheus-3B's heads (24 query / 8 KV of 128) through
+    load_orpheus_params: every linear is packed int4 [in/2, out] with f16
+    scales [in/32, out], q/k/v and gate/up fuse along the output dim, the
+    65,536-plus-row lm_head pads to a multiple of 1024 with zero columns,
+    every tensor equals the JAX loader's (the scales as f16 bits), and the
+    upload and unpacking seconds are recorded."""
+    hidden, heads, kv_heads, hd, ffn, vocab = 128, 24, 8, 128, 256, 70000
+    path = write_random_orpheus(tmp_path / "q4.gguf", qtype="Q4_0", n_layers=1, hidden=hidden,
+                                heads=heads, kv_heads=kv_heads, head_dim=hd, ffn=ffn,
+                                vocab=vocab, snac_embd=96, snac_channels=(48, 24, 12, 6))
+    cfg = to.OrpheusConfig(n_layers=1, hidden_size=hidden, n_attn_heads=heads,
+                           n_kv_attn_heads=kv_heads, head_size=hd, vocab_size=vocab)
+    timings = {}
+    with GGUFFile(path) as f:
+        p = to.load_orpheus_params(dict(f.tensors), cfg, timings=timings)
+    assert set(timings) == {"pack_s", "upload_s"} and min(timings.values()) > 0
+    layer = p["layers"][0]
+    shapes = {"qkv": (hidden // 2, (heads + 2 * kv_heads) * hd), "o": (heads * hd // 2, hidden),
+              "gateup": (hidden // 2, 2 * ffn), "down": (ffn // 2, hidden)}
+    for name, (rows, cols) in shapes.items():
+        assert set(layer[name]) == {"wq4", "scales"}
+        assert layer[name]["wq4"].dtype == torch.int8
+        assert tuple(layer[name]["wq4"].shape) == (rows, cols)
+        assert layer[name]["scales"].dtype == torch.float16
+        assert tuple(layer[name]["scales"].shape) == (rows * 2 // 32, cols)
+    head = p["head"]
+    assert tuple(head["wq4"].shape) == (hidden // 2, 70656)
+    assert not head["wq4"][:, vocab:].any() and not head["scales"][:, vocab:].any()
 
-    w = GGUFWriter(tmp_path / "q4.gguf")
-    w.add_tensor("orpheus.lm_head", rng.standard_normal((256, 128)).astype(np.float32),
-                 GGMLType.Q4_0)
-    w.write()
-    with GGUFFile(tmp_path / "q4.gguf") as f:
-        tensors = {"orpheus.embed_tokens": np.zeros((256, 128), np.float32), **f.tensors}
-        with pytest.raises(TTSError, match="Q4_0"):
-            to.load_orpheus_params(tensors, to.OrpheusConfig(n_layers=0, hidden_size=128))
+    with JaxGGUFFile(path) as f:
+        jcfg = jo.OrpheusConfig(n_layers=1, hidden_size=hidden, n_attn_heads=heads,
+                                n_kv_attn_heads=kv_heads, head_size=hd, vocab_size=vocab)
+        from_jax = to.params_from_jax(jax.tree_util.tree_map(
+            np.asarray, jo.load_orpheus_params(dict(f.tensors), jcfg)))
+    for x, y in zip(_flatten(p, []), _flatten(from_jax, []), strict=True):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
-def test_generate_matches_jax(gguf, monkeypatch):
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_generate_matches_jax(tiny, qtype, monkeypatch):
     """runner.generate, greedy, against the JAX runner (whose speculative
     loop emits its sequential loop's tokens): the same token ids up to the
     first numerical tie, and the port's audio equals the JAX decoder's on
     the port's tokens once the port's SNAC draws the JAX package's noise.
     113 tokens = 16 frames = 64 SNAC frames, one of JAX's frame buckets, so
     its decoder runs unpadded like the port's."""
+    gguf = tiny(qtype)[0]
     cfg = GenerationConfig(seed=3, sample=False, max_tokens=113, voice="zoe")
     streams = {}
 
@@ -253,6 +294,7 @@ def test_generate_matches_jax(gguf, monkeypatch):
     assert len(jax_toks) == len(port_toks) == got.timings["decode_steps"] == 113
     prompt = (list(to.PREPENDED_TOKENS) + tr.tokenizer.tokenize("zoe: hi there")
               + list(to.APPENDED_TOKENS))
+    assert got.timings["prompt_tokens"] == len(prompt)
     agree = _assert_greedy_equal(_port_logits_along(tr.params, tr.cfg, prompt, jax_toks),
                                  jax_toks)
     assert port_toks[:agree] == jax_toks[:agree]
@@ -263,10 +305,11 @@ def test_generate_matches_jax(gguf, monkeypatch):
         np.testing.assert_allclose(got.audio, want.audio, atol=1e-4, rtol=0)
 
 
-def test_sampled_generate_is_seeded_and_finite(gguf):
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_sampled_generate_is_seeded_and_finite(tiny, qtype):
     """Sampled draws come from a torch.Generator: the same seed repeats, and
     the audio length follows the token count (lenient codes keep every frame)."""
-    tr = runner_from_file(gguf, device="cpu")
+    tr = runner_from_file(tiny(qtype)[0], device="cpu")
     tr.cfg = dataclasses.replace(tr.cfg, max_context_length=CTX, max_generation_size=GEN)
     cfg = GenerationConfig(seed=11, max_tokens=30, top_k=50, top_p=0.9, temperature=0.8,
                            repetition_penalty=1.2)
@@ -297,10 +340,13 @@ def test_cuda_without_a_card_raises(gguf):
         runner_from_file(gguf, device="cuda")
 
 
-def test_server_answers_speech(gguf):
-    """The port's server (the JAX server's handler and workers, the port's
-    runners) on port 0, device='cpu': one POST -> a WAV of the right length."""
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_server_answers_speech(tiny, qtype):
+    """The port's server on port 0, device='cpu': one POST -> a WAV of the
+    right length."""
     from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
+
+    gguf = tiny(qtype)[0]
 
     with pytest.raises(NotImplementedError):
         ServerState({"m": gguf}, GenerationConfig(), data_parallel=True, device="cpu")

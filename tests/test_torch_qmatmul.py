@@ -1,6 +1,8 @@
-"""The port's quantized matmul (tts_tpu_torch.ops.qmatmul) against the JAX
-package's Pallas kernels (interpret mode on the CPU).  The Hopper kernels
-are held to their plain versions in test_torch_kernels.py."""
+"""The port's quantized matmul (tts_tpu_torch.ops.qmatmul), int8 and packed
+int4, against the JAX package's Pallas kernels (interpret mode on the CPU).
+The Hopper kernels are held to their plain versions in test_torch_kernels.py."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -11,8 +13,10 @@ pytest.importorskip("jax")  # the reference; absent where only the port runs
 import jax.numpy as jnp  # noqa: E402
 
 from tts_tpu.core import quant  # noqa: E402
-from tts_tpu.core.gguf import GGMLType, GGUFFile, GGUFWriter  # noqa: E402
+from tts_tpu.core.gguf import GGMLType, GGUFWriter  # noqa: E402
+from tts_tpu.core.gguf import GGUFFile as JaxGGUFFile  # noqa: E402
 from tts_tpu.ops import qmatmul as jq  # noqa: E402
+from tts_tpu_torch.core.gguf import GGUFFile  # noqa: E402
 from tts_tpu_torch.ops import qmatmul as tq  # noqa: E402
 
 torch.set_num_threads(1)
@@ -26,6 +30,26 @@ def make_q8(rng, K, N):
     values, scales = quant.q8_0_to_int8_scales(raw, w.size)
     return (np.ascontiguousarray(values.reshape(N, K).T),
             np.ascontiguousarray(scales.reshape(N, K // 32).T))
+
+
+def make_q4(rng, K, N, n_pad=0):
+    """Q4_0 round trip of a random [N, K] (out, in) weight -> packed int4
+    [K/2, N + n_pad] (the JAX package's packing), f32 scales [K/32, N + n_pad];
+    the n_pad extra columns are zero, as a tile-padded lm_head's are."""
+    w = rng.standard_normal((N, K)).astype(np.float32)
+    raw = np.frombuffer(quant.quantize_q4_0(w), np.uint8)
+    values, scales = quant.q4_0_to_int8_scales(raw, w.size)
+    wq4 = jq.pack_q4_nibbles(np.ascontiguousarray(values.reshape(N, K).T))
+    sc = np.ascontiguousarray(scales.reshape(N, K // 32).T)
+    pad = [(0, 0), (0, n_pad)]
+    return np.pad(wq4, pad), np.pad(sc, pad)
+
+
+@contextlib.contextmanager
+def _tensor(path, name):
+    """The same GGUF tensor as each package's reader sees it."""
+    with JaxGGUFFile(path) as jf, GGUFFile(path) as f:
+        yield jf.tensors[name], f.tensors[name]
 
 
 @pytest.mark.parametrize("N", [1024, 1280])
@@ -69,22 +93,96 @@ def test_pack_q8_weight_matches_jax(tmp_path, rng, qtype, pad_n):
     w.add_tensor("w", rng.standard_normal((300, 128)).astype(np.float32),
                  getattr(GGMLType, qtype))
     w.write()
-    with GGUFFile(tmp_path / "w.gguf") as f:
-        t = f.tensors["w"]
-        want = jq.pack_q8_weight(t, pad_n=pad_n, tile_n=256)
+    with _tensor(tmp_path / "w.gguf", "w") as (jt, t):
+        want = jq.pack_q8_weight(jt, pad_n=pad_n, tile_n=256)
         got = tq.pack_q8_weight(t, pad_n=pad_n, tile_n=256)
-        np.testing.assert_array_equal(got["wq"], np.asarray(want["wq"]))
-        assert got["scales"].dtype == np.float16
-        np.testing.assert_array_equal(got["scales"].view(np.uint16), np.asarray(want["scales"]))
-        assert got["wq"].shape == ((128, 512) if pad_n else (128, 300))
+    np.testing.assert_array_equal(got["wq"], np.asarray(want["wq"]))
+    assert got["scales"].dtype == np.float16
+    np.testing.assert_array_equal(got["scales"].view(np.uint16), np.asarray(want["scales"]))
+    assert got["wq"].shape == ((128, 512) if pad_n else (128, 300))
+
+
+@pytest.mark.parametrize("pad_n", [False, True])
+@pytest.mark.parametrize("in_dim", [128, 320])
+def test_pack_q4_weight_matches_jax(tmp_path, rng, in_dim, pad_n):
+    """The port packs Q4_0 from the raw blocks with torch ops (on the device
+    in the loader): the nibbles are bit-identical to the JAX package's, the
+    f16 scales bit-equal to its uint16 scale bits, with its padding rule."""
+    w = GGUFWriter(tmp_path / "w.gguf")
+    w.add_tensor("w", rng.standard_normal((300, in_dim)).astype(np.float32), GGMLType.Q4_0)
+    w.write()
+    with _tensor(tmp_path / "w.gguf", "w") as (jt, t):
+        want = jq.pack_q4_weight(jt, pad_n=pad_n, tile_n=256)
+        got = tq.pack_q4_weight(t, pad_n=pad_n, tile_n=256)
+    assert got["wq4"].dtype == torch.int8 and got["scales"].dtype == torch.float16
+    assert tuple(got["wq4"].shape) == (in_dim // 2, 512 if pad_n else 300)
+    np.testing.assert_array_equal(got["wq4"].numpy(), np.asarray(want["wq4"]))
+    np.testing.assert_array_equal(got["scales"].numpy().view(np.uint16),
+                                  np.asarray(want["scales"]))
+
+
+def test_pack_q4_nibbles_matches_jax(rng):
+    values = rng.integers(-8, 8, (64, 48)).astype(np.int8)
+    np.testing.assert_array_equal(tq.pack_q4_nibbles(torch.from_numpy(values)).numpy(),
+                                  jq.pack_q4_nibbles(values))
+
+
+@pytest.mark.parametrize("qtype,in_dim,fmt", [
+    ("Q4_0", 128, "wq4"), ("Q4_0", 96, "wq"), ("Q8_0", 128, "wq"), ("Q5_0", 128, "wq"),
+    ("F16", 128, None)])
+def test_linear_format_is_jax_pack_linear(tmp_path, rng, qtype, in_dim, fmt):
+    """Eligibility: Q4_0 packs to int4 only when in % 64 == 0 (the nibble
+    split), any other Q4_0 and Q8_0/Q5_0 to int8, the rest stays dense, as
+    the JAX package's pack_linear decides."""
+    w = GGUFWriter(tmp_path / "w.gguf")
+    w.add_tensor("w", rng.standard_normal((256, in_dim)).astype(np.float32),
+                 getattr(GGMLType, qtype))
+    w.write()
+    with _tensor(tmp_path / "w.gguf", "w") as (jt, t):
+        assert tq.linear_format(t) == fmt
+        packed = jq.pack_linear(jt)
+    assert (None if packed is None else next(k for k in packed if k != "scales")) == fmt
+
+
+@pytest.mark.parametrize("N", [256, 512, 300])
+@pytest.mark.parametrize("K", [256, 512])
+@pytest.mark.parametrize("M", [1, 2, 3, 8])
+def test_quantized_matmul_q4_matches_jax(M, K, N):
+    """The plain int4 versions against quantized_matmul_q4: N = 300 is padded
+    to 512 with zero columns.  M > 1: both are f32 x @ dequant in f32.
+    M == 1: x is rounded to bf16 on both sides (JAX's block-diagonal kernel
+    does so itself; at K = 256 its whole-K kernel is given rounded x).  The
+    same exact products summed in another order: rtol 1e-5 of max|out|."""
+    rng = np.random.default_rng(M * 10007 + K + N)
+    wq4, sc = make_q4(rng, K, N, n_pad=(-N) % 256)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    xj = x if M > 1 else np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    want = np.asarray(jq.quantized_matmul_q4(jnp.asarray(xj), jnp.asarray(wq4),
+                                             jnp.asarray(sc.astype(np.float16).view(np.uint16))))
+    plain = tq.qgemv_int4_plain if M == 1 else tq.qgemm_int4_plain
+    args = (torch.from_numpy(x), torch.from_numpy(wq4), torch.from_numpy(sc.astype(np.float16)))
+    got = plain(*args).numpy()
+    np.testing.assert_array_equal(tq.quantized_matmul_q4(*args).numpy(), got)
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=tol)
+    if M == 1:
+        # without the bf16 rounding of x the port would miss by far more
+        values = np.concatenate([(wq4.astype(np.int16) << 12) >> 12, wq4.astype(np.int16) >> 4])
+        exact = x @ (values.astype(np.float32) * np.repeat(sc, 32, axis=0))
+        assert np.abs(exact - want).max() > 10 * np.abs(got - want).max()
 
 
 def test_cpu_wrappers_launch_nothing(rng):
     """On CPU tensors the wrappers run the plain versions and count no launch."""
-    wq, sc = make_q8(rng, 64, 256)
-    before = (tq.qgemv_int8.launches, tq.qgemm_int8.launches)
+    kernels = (tq.qgemv_int8, tq.qgemm_int8, tq.qgemv_int4, tq.qgemm_int4)
+    before = [k.launches for k in kernels]
     x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+    wq, sc = make_q8(rng, 64, 256)
     args = (torch.from_numpy(wq), torch.from_numpy(sc.astype(np.float16)))
     torch.testing.assert_close(tq.qgemv_int8(x[:1], *args), tq.qgemv_int8_plain(x[:1], *args))
     torch.testing.assert_close(tq.qgemm_int8(x, *args), tq.qgemm_int8_plain(x, *args))
-    assert (tq.qgemv_int8.launches, tq.qgemm_int8.launches) == before
+    wq4, sc4 = make_q4(rng, 64, 256)
+    args = (torch.from_numpy(wq4), torch.from_numpy(sc4.astype(np.float16)))
+    torch.testing.assert_close(tq.qgemv_int4(x[:1], *args), tq.qgemv_int4_plain(x[:1], *args))
+    torch.testing.assert_close(tq.qgemm_int4(x, *args), tq.qgemm_int4_plain(x, *args))
+    assert [k.launches for k in kernels] == before

@@ -3,16 +3,21 @@
 The JAX package `tts_tpu` stays the reference: every module here mirrors its
 counterpart's name and layout (`ops/qmatmul.py`, `ops/attention.py`,
 `models/orpheus.py`, ...), and the tests in `tests/test_torch_*.py` run both
-on the same inputs.  This package imports `torch` and never `jax`; host-side
-modules of `tts_tpu` that are jax-free (GGUF reader, tokenizers, runner API,
-audio encoders, the server's handler) are shared by import.
+on the same inputs.  This package imports `torch` and never `jax`, nor any
+module of `tts_tpu`: the host-side pieces it needs (GGUF reader and writer,
+quant codecs, BPE tokenizer, runner API, audio encoders, server, dummy
+runner) are its own copies.
 
 Layer map:
   csrc/     hand-written Hopper (sm_90a) CUDA kernels, one per TPU Pallas kernel
   ops/      kernel wrappers with their plain PyTorch versions, sampling, convs
+  core/     GGUF reader/writer and the Q4_0/Q5_0/Q8_0 block codecs
+  text/     BPE tokenizer
   codecs/   SNAC decoder
-  models/   Orpheus-3B (Q8_0 weights, bf16 KV cache) + registry
+  models/   Orpheus-3B (Q8_0 or Q4_0 weights, bf16 KV cache), dummy + registry
+  runtime/  runner API
   apps/     OpenAI-compatible speech server on `--device cuda`
+  convert/  seeded random-weight GGUF builders
 """
 
 __version__ = "0.1.0"

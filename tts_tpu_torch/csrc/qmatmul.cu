@@ -18,17 +18,13 @@
 // in f32) and every thread accumulates a small register tile in f32.  Bound
 // at prefill sizes: f32 FMA throughput; tensor cores (mma.sync / wgmma) are
 // later work.
-#include "common.cuh"
+#include "qmatmul.cuh"
 
 namespace {
 
-constexpr int QBLOCK = 32;
+using namespace tts;
 
 // ---- M == 1 ----------------------------------------------------------------
-constexpr int GEMV_COLS = 16;                    // columns per thread (16 B)
-constexpr int GEMV_WARPS = 4;                    // warps split a CTA's k-range
-constexpr int GEMV_TILE_N = 32 * GEMV_COLS;      // 512 columns per CTA
-
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 qgemv_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wq,
                   const __half* __restrict__ scales, float* __restrict__ out,
@@ -56,122 +52,64 @@ qgemv_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
         const int4 v = __ldg(reinterpret_cast<const int4*>(wp + (size_t)r * N));
         const float xr = __bfloat162float(xp[r]);
         float w[GEMV_COLS];
-        tts::unpack_i8x16(v, w);
+        unpack_i8x16(v, w);
 #pragma unroll
         for (int j = 0; j < GEMV_COLS; ++j) part[j] = fmaf(xr, w[j], part[j]);
       }
       // the block's scales apply to its partial sums, as in the TPU kernel
       const uint4* sp = reinterpret_cast<const uint4*>(scales + (size_t)b * N + n0);
       float s[GEMV_COLS];
-      tts::unpack_f16x8(__ldg(sp), s);
-      tts::unpack_f16x8(__ldg(sp + 1), s + 8);
+      unpack_f16x8(__ldg(sp), s);
+      unpack_f16x8(__ldg(sp + 1), s + 8);
 #pragma unroll
       for (int j = 0; j < GEMV_COLS; ++j) acc[j] = fmaf(part[j], s[j], acc[j]);
     }
   }
-
-  // sum the warps' k-ranges; [warp][j][lane] keeps both passes conflict-free
-  __shared__ float red[GEMV_WARPS][GEMV_COLS][32];
-#pragma unroll
-  for (int j = 0; j < GEMV_COLS; ++j) red[warp][j][lane] = acc[j];
-  __syncthreads();
-  for (int c = threadIdx.x; c < GEMV_TILE_N; c += blockDim.x) {
-    const int l = c & 31, j = c >> 5;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < GEMV_WARPS; ++w) sum += red[w][j][l];
-    const int n = blockIdx.x * GEMV_TILE_N + l * GEMV_COLS + j;
-    if (n < N) out[(size_t)blockIdx.y * N + n] = sum;
-  }
-}
-
-// out[n] = sum over splits of partial[s, n], in split order (deterministic)
-__global__ void splitk_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                  int splits, int N) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float sum = 0.f;
-  for (int s = 0; s < splits; ++s) sum += partial[(size_t)s * N + n];
-  out[n] = sum;
+  gemv_cta_store(acc, out, N);
 }
 
 // ---- M > 1 -----------------------------------------------------------------
-constexpr int GM_BN = 128;
-constexpr int GM_BK = QBLOCK;
-constexpr int GM_THREADS = 256;  // 16 x 16; each thread: BM/16 rows x 8 columns
-
 template <int BM>
 __global__ void __launch_bounds__(GM_THREADS)
 qgemm_int8_kernel(const float* __restrict__ x, const int8_t* __restrict__ wq,
                   const __half* __restrict__ scales, float* __restrict__ out,
                   int M, int K, int N) {
-  constexpr int RM = BM / 16;
   __shared__ float xs[GM_BK][BM + 1];                 // x tile, k-major (+1: no bank conflicts)
   __shared__ __align__(16) float ws[GM_BK][GM_BN];    // dequantized weights
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * GM_BN;
   const int wr = tid >> 3, wc = (tid & 7) * 16;       // this thread's 16 weights
   const bool wlive = n0 + wc < N;                     // N % 16 == 0
 
-  float acc[RM][8];
+  float acc[BM / 16][8];
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int i = 0; i < BM / 16; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += GM_BK) {
-    for (int i = tid; i < BM * GM_BK; i += GM_THREADS) {
-      const int r = i / GM_BK, c = i % GM_BK;          // reads coalesced along k
-      const int m = m0 + r;
-      xs[c][r] = m < M ? x[(size_t)m * K + k0 + c] : 0.f;
-    }
+    gemm_load_x<BM>(xs, x, m0, M, K, k0);
     float w[16];
     if (wlive) {
       const int4 v = __ldg(reinterpret_cast<const int4*>(wq + (size_t)(k0 + wr) * N + n0 + wc));
       const uint4* sp = reinterpret_cast<const uint4*>(scales + (size_t)(k0 / QBLOCK) * N + n0 + wc);
       float s[16];
-      tts::unpack_f16x8(__ldg(sp), s);
-      tts::unpack_f16x8(__ldg(sp + 1), s + 8);
-      tts::unpack_i8x16(v, w);
+      unpack_f16x8(__ldg(sp), s);
+      unpack_f16x8(__ldg(sp + 1), s + 8);
+      unpack_i8x16(v, w);
 #pragma unroll
       for (int j = 0; j < 16; ++j) w[j] *= s[j];
     } else {
 #pragma unroll
       for (int j = 0; j < 16; ++j) w[j] = 0.f;
     }
-#pragma unroll
-    for (int j = 0; j < 16; j += 4)
-      *reinterpret_cast<float4*>(&ws[wr][wc + j]) = make_float4(w[j], w[j + 1], w[j + 2], w[j + 3]);
+    gemm_store_w(ws, wr, wc, w);
     __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < GM_BK; ++kk) {
-      float a[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = xs[kk][ty * RM + i];
-      const float4 b0 = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&ws[kk][64 + tx * 4]);
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
+    gemm_fma_tile<BM>(acc, xs, ws);
     __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int m = m0 + ty * RM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) out[(size_t)m * N + n] = acc[i][j];
-    }
-  }
+  gemm_store_out<BM>(acc, out, m0, n0, M, N);
 }
 
 }  // namespace
@@ -180,32 +118,12 @@ qgemm_int8_kernel(const float* __restrict__ x, const int8_t* __restrict__ wq,
 extern "C" int qgemv_int8(const void* x, const void* wq, const void* scales, void* partial,
                           void* out, int K, int N, int splits, int blocks_per_split,
                           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* dst = splits == 1 ? static_cast<float*>(out) : static_cast<float*>(partial);
-  const dim3 grid((N + GEMV_TILE_N - 1) / GEMV_TILE_N, splits);
-  qgemv_int8_kernel<<<grid, GEMV_WARPS * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wq),
-      static_cast<const __half*>(scales), dst, K, N, blocks_per_split);
-  if (splits > 1) {
-    splitk_sum_kernel<<<(N + 255) / 256, 256, 0, st>>>(
-        static_cast<const float*>(partial), static_cast<float*>(out), splits, N);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tts::launch_gemv(qgemv_int8_kernel, x, wq, scales, partial, out, K, N, splits,
+                          blocks_per_split, stream);
 }
 
 extern "C" int qgemm_int8(const void* x, const void* wq, const void* scales, void* out,
                           int M, int K, int N, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(wq);
-  const __half* sp = static_cast<const __half*>(scales);
-  float* op = static_cast<float*>(out);
-  if (M <= 16) {
-    const dim3 grid((N + GM_BN - 1) / GM_BN, (M + 15) / 16);
-    qgemm_int8_kernel<16><<<grid, GM_THREADS, 0, st>>>(xp, wp, sp, op, M, K, N);
-  } else {
-    const dim3 grid((N + GM_BN - 1) / GM_BN, (M + 63) / 64);
-    qgemm_int8_kernel<64><<<grid, GM_THREADS, 0, st>>>(xp, wp, sp, op, M, K, N);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tts::launch_gemm(qgemm_int8_kernel<16>, qgemm_int8_kernel<64>, x, wq, scales, out,
+                          M, K, N, stream);
 }

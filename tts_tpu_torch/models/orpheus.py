@@ -2,18 +2,18 @@
 
 Counterpart of `tts_tpu/models/orpheus.py`: 28 layers, GQA (24 query / 8 KV
 heads), RMS norms, SiLU-gated MLP, llama-3 scaled RoPE, the voice prompt
-frame, and the 7-token frame -> 3 SNAC codebook redistribution.  Q8_0 / Q5_0
-linears stay int8 on the device with f16 block scales and run through the
-hand-written kernels of `ops/qmatmul.py`; single-token attention runs the
-flash-decode kernel of `ops/attention.py` over a head-major bf16 (or int8)
-KV cache.  Decode is a host loop of eager steps that keeps the position on
-the device as an int32 tensor.
+frame, and the 7-token frame -> 3 SNAC codebook redistribution.  Quantized
+linears stay on the device with f16 block scales, as int8 (Q8_0 / Q5_0) or
+packed int4 (Q4_0), by `ops.qmatmul.linear_format`'s rule, and run through
+the hand-written kernels of `ops/qmatmul.py`; single-token attention runs
+the flash-decode kernel of `ops/attention.py` over a head-major bf16 (or
+int8) KV cache.  Decode is a host loop of eager steps that keeps the
+position on the device as an int32 tensor.
 
 Not ported: the prompt buckets (prefill runs the exact prompt length), the
 AOT export cache, the tensor-parallel shard_map islands (`make_tp_context`,
 `_tp_qlinear`, `_flash_decode_tp`), and, in this slice, the speculative
-greedy loop, `generate_stream` and Q4_0's int4 layout (Q4_0 checkpoints are
-refused).
+greedy loop and `generate_stream`.
 """
 
 from __future__ import annotations
@@ -29,14 +29,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tts_tpu.core.gguf import GGMLType, GGUFTensor
-from tts_tpu.text.tokenizers import BPETokenizer
 from tts_tpu_torch.codecs.snac import SNACDecoder, params_from_jax  # noqa: F401
+from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
 from tts_tpu_torch.models.registry import register_loader
 from tts_tpu_torch.ops.attention import S_CHUNK, flash_decode, quantize_kv
-from tts_tpu_torch.ops.qmatmul import linear, pack_q8_weight
+from tts_tpu_torch.ops.qmatmul import linear, linear_format, pack_q4_weight, pack_q8_weight
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSResponse, TTSRunner
+from tts_tpu_torch.text.tokenizers import BPETokenizer
 
 ORPHEUS_VOICES = ("zoe", "zac", "jess", "leo", "mia", "julia", "leah")
 PREPENDED_TOKENS = (128259, 128000)
@@ -89,11 +89,13 @@ class OrpheusConfig:
 
 def load_orpheus_params(tensors: dict, cfg: OrpheusConfig, device="cpu",
                         timings: dict | None = None) -> dict:
-    """tensors: name -> GGUFTensor (or numpy array).  Q8_0/Q5_0 linears
-    become {"wq": int8 [in, out], "scales": f16 [in/32, out]} on `device`;
-    q/k/v and gate/up fuse along the output dim; the lm_head pads to 1024
-    columns.  Q4_0 raises TTSError until the int4 kernels are ported.
-    `timings`, if given, collects host packing and upload seconds."""
+    """tensors: name -> GGUFTensor (or numpy array).  Quantized linears
+    become, by `linear_format`, {"wq": int8 [in, out], "scales": f16
+    [in/32, out]} (Q8_0 / Q5_0, packed on the host) or {"wq4": int8
+    [in/2, out], "scales"} (Q4_0: the raw blocks are uploaded and unpacked
+    on `device`); q/k/v and gate/up of one layout fuse along the output dim;
+    the lm_head pads to 1024 columns.  `timings`, if given, collects packing
+    and upload seconds."""
     timings = {} if timings is None else timings
     timings.setdefault("pack_s", 0.0)
     timings.setdefault("upload_s", 0.0)
@@ -121,11 +123,10 @@ def load_orpheus_params(tensors: dict, cfg: OrpheusConfig, device="cpu",
         t = raw(name)
         pad_n = name.endswith("lm_head")
         tile = 1024 if pad_n and t.shape[0] >= 65536 else 256
-        if isinstance(t, GGUFTensor) and t.ggml_type == GGMLType.Q4_0:
-            raise TTSError(f"orpheus: {name} is Q4_0; the int4 kernels are not ported "
-                           "yet (use a Q8_0 or Q5_0 checkpoint)")
-        if (isinstance(t, GGUFTensor) and t.shape[1] % 32 == 0
-                and t.ggml_type in (GGMLType.Q8_0, GGMLType.Q5_0)):
+        fmt = linear_format(t)
+        if fmt == "wq4":
+            return pack_q4_weight(t, pad_n=pad_n, tile_n=tile, device=device, timings=timings)
+        if fmt == "wq":
             t0 = time.perf_counter()
             p = pack_q8_weight(t, pad_n=pad_n, tile_n=tile)
             timings["pack_s"] += time.perf_counter() - t0
@@ -133,8 +134,9 @@ def load_orpheus_params(tensors: dict, cfg: OrpheusConfig, device="cpu",
         return {"w": get(name, torch.bfloat16).t().contiguous()}
 
     def fuse(parts):
-        if all("wq" in part for part in parts):
-            return {k: torch.cat([part[k] for part in parts], dim=1) for k in ("wq", "scales")}
+        for key in ("wq", "wq4"):
+            if all(key in part for part in parts):
+                return {k: torch.cat([part[k] for part in parts], dim=1) for k in (key, "scales")}
         return None
 
     p = {"embd": get("orpheus.embed_tokens", torch.bfloat16),
@@ -426,7 +428,8 @@ class OrpheusRunner(TTSRunner):
         t_end = time.perf_counter()
         return TTSResponse(
             audio=audio, sample_rate=self.sample_rate,
-            timings={"prefill_ms": (t_prefill - t0) * 1e3,
+            timings={"prompt_tokens": len(ids),
+                     "prefill_ms": (t_prefill - t0) * 1e3,
                      "decode_ms": (t_decode - t_prefill) * 1e3,
                      "decode_steps": len(outputs),
                      "codec_ms": (t_end - t_decode) * 1e3})

@@ -1,9 +1,8 @@
 """Model registry and `runner_from_file`, the port's top-level entry point.
 
-Counterpart of `tts_tpu/models/registry.py`, which imports the JAX model
-modules and so cannot be shared.  Loaders register per GGUF
-`general.architecture`; the `test:` prefix returns the weight-free fakes of
-`tts_tpu.models.dummy` (jax-free, shared by import).
+Counterpart of `tts_tpu/models/registry.py`.  Loaders register per GGUF
+`general.architecture`; the `test:` prefix returns the weight-free fakes
+(`test:dummy`, models/dummy.py).
 """
 
 from __future__ import annotations
@@ -12,7 +11,7 @@ from typing import Callable
 
 import torch
 
-from tts_tpu.core.gguf import GGUFFile
+from tts_tpu_torch.core.gguf import GGUFFile
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSRunner
 
 _LOADERS: dict[str, Callable] = {}
@@ -30,18 +29,12 @@ def list_architectures() -> list[str]:
     return sorted(_LOADERS)
 
 
-@register_loader("dummy", is_test=True)
-def _load_dummy(config: GenerationConfig, device) -> TTSRunner:
-    from tts_tpu.models.dummy import DummyRunner
-
-    return DummyRunner()
-
-
 def runner_from_file(path: str, config: GenerationConfig | None = None,
                      device="cuda") -> TTSRunner:
     """Load a GGUF model file onto `device` and return its runner.  A CUDA
     device with no card raises TTSError: nothing falls back to the CPU."""
-    import tts_tpu_torch.models.orpheus  # noqa: F401  (registers its loader)
+    import tts_tpu_torch.models.dummy  # noqa: F401  (register their loaders)
+    import tts_tpu_torch.models.orpheus  # noqa: F401
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

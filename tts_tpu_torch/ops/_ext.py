@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels (`csrc/*.cu`) with nvcc and ctypes.
 
-On first use, nvcc compiles every source in `csrc/` for `sm_90a` into one
+On first use, nvcc compiles every source in `csrc/` for `sm_90a`, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, under `build/` at the repository
-root (listed in .gitignore), named by a hash of the sources and flags so an
-edited source never loads a stale library.  It is loaded with ctypes:
+root (listed in .gitignore), named by a hash of the sources, headers and
+flags so an edited file never loads a stale library.  It is loaded with ctypes:
 pointers and the CUDA stream pass as `c_void_p`, and each entry point
 returns `cudaGetLastError()` after its launches, which `check` turns into an
 exception.  A plain C interface builds in seconds; a source that includes
@@ -27,7 +28,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types, in the order of csrc/*.cu's extern "C" API
@@ -36,6 +37,10 @@ SIGNATURES = {
     "qgemv_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x_f32, wq, scales, out, M, K, N, stream
     "qgemm_int8": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x_bf16, wq4, scales, partial, out, K, N, splits, blocks_per_split, stream
+    "qgemv_int4": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x_f32, wq4, scales, out, M, K, N, stream
+    "qgemm_int4": (_P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, k_scale, v_scale, pos, part_m, part_l, part_acc, out,
     # Hq, Hkv, S, kv_int8, scale, stream
     "flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -62,23 +67,32 @@ def _nvcc() -> str:
 def _build() -> str:
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         with open(s, "rb") as f:
-            h.update(f.read())
+            h.update(os.path.basename(s).encode() + f.read())
     path = os.path.join(BUILD_DIR, f"libtts_tpu_torch_{h.hexdigest()[:16]}.so")
     if os.path.exists(path):
         build_info.update(seconds=0.0, path=path, log="(cached)")
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    tmp = f"{path}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)       # atomic: concurrent builders never see half a file
-    build_info.update(seconds=seconds, path=path, log=proc.stderr + proc.stdout)
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s], text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    for s, p, log in zip(srcs, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {os.path.basename(s)} ({p.returncode}):\n{log}")
+    link = subprocess.run([_nvcc(), "-shared", "-o", f"{tmp}.tmp", *objs],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    for o in objs:
+        os.remove(o)
+    os.replace(f"{tmp}.tmp", path)   # atomic: concurrent builders never see half a file
+    build_info.update(seconds=time.perf_counter() - t0, path=path, log="".join(logs))
     return path
 
 

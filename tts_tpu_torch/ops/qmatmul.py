@@ -1,13 +1,22 @@
-"""Weights-quantized matmul: activations x int8 block-quantized weights.
+"""Weights-quantized matmul: activations x int8 or packed int4 block-quantized
+weights.
 
-Counterpart of `tts_tpu/ops/qmatmul.py`.  Layout at the public functions is
-the JAX package's: `wq` int8 [K, N] and one scale per 32-row block and
-column, `scales` [K/32, N], here stored as float16 (the GGUF block `d` is
-f16, so this is exact).
+Counterpart of `tts_tpu/ops/qmatmul.py`.  Layouts at the public functions are
+the JAX package's, with one scale per 32-row block and column, `scales`
+[K/32, N], stored here as float16 (the GGUF block `d` is f16, so this is
+exact):
+  int8 (Q8_0, Q5_0, and Q4_0 that cannot pack):  `wq` int8 [K, N]
+  int4 (Q4_0 with K % 64 == 0):  `wq4` int8 [K/2, N]; packed[i, n] holds
+      row i in the low nibble and row i + K/2 in the high nibble, both
+      signed 4-bit, so unpacking is a concatenation, not an interleave.
+`linear_format` is the one home of that eligibility rule.
 
-Two hand-written Hopper kernels (csrc/qmatmul.cu) replace the TPU's Pallas
-kernels: `qgemv_int8` (M == 1, every decode step; was `_qmv_kernel`) and
-`qgemm_int8` (M > 1, prefill; was `_qmm_kernel`).  Each wrapper runs its
+Four hand-written Hopper kernels replace the TPU's Pallas kernels:
+`qgemv_int8` / `qgemm_int8` (csrc/qmatmul.cu; were `_qmv_kernel` /
+`_qmm_kernel`) and `qgemv_int4` / `qgemm_int4` (csrc/qmatmul4.cu; were
+`_qmv4_kernel` / `_qmm4_kernel`).  The GEMVs serve M == 1 (every decode
+step) with x rounded to bf16, as the TPU kernels feed bf16 activations to
+the MXU; the GEMMs serve M > 1 (prefill) in f32.  Each wrapper runs its
 plain PyTorch version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises.
 
@@ -19,17 +28,37 @@ policy (`_pick_tiles`, `_auto_tile_n`, the `TTS_TPU_BLOCKDIAG_*` knobs).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
+from tts_tpu_torch.core.quant import Q4_0_BLOCK_BYTES
 from tts_tpu_torch.ops import _ext
 
 QBLOCK = 32
-# qgemv_int8: CTAs to aim for (4 per SM of the H100's 132) and the warps that
-# share one CTA's k-range (csrc/qmatmul.cu GEMV_WARPS / GEMV_TILE_N)
+# the GEMVs: CTAs to aim for (4 per SM of the H100's 132) and the warps that
+# share one CTA's k-range (csrc GEMV_WARPS / GEMV_TILE_N)
 _GEMV_TARGET_CTAS = 4 * 132
 _GEMV_WARPS = 4
 _GEMV_TILE_N = 512
+# output columns dequantized at a time by the plain versions: the
+# temporaries stay small at the 157k-wide lm_head
+_PLAIN_COLS = 2048
+
+
+def linear_format(tensor) -> str | None:
+    """How a GGUF linear [out, in] is stored on the device: "wq4" (packed
+    int4: Q4_0 with in % 64 == 0, the nibble split needs it), "wq" (int8:
+    Q8_0, Q5_0 and any other Q4_0 with in % 32 == 0), or None (dense)."""
+    if not isinstance(tensor, GGUFTensor) or tensor.shape[1] % QBLOCK:
+        return None
+    if tensor.ggml_type == GGMLType.Q4_0 and tensor.shape[1] % (2 * QBLOCK) == 0:
+        return "wq4"
+    if tensor.ggml_type in (GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q5_0):
+        return "wq"
+    return None
 
 
 def _pad_n(arr: np.ndarray, tile: int) -> np.ndarray:
@@ -44,9 +73,8 @@ def _pad_n(arr: np.ndarray, tile: int) -> np.ndarray:
 def pack_q8_weight(tensor, pad_n: bool = False, tile_n: int = 256) -> dict:
     """GGUFTensor (Q8_0/Q4_0/Q5_0, shape [out, in]) -> numpy {"wq": int8
     [in, out], "scales": float16 [in/32, out]}.  `pad_n` zero-pads the output
-    dim to a multiple of `tile_n` (the Orpheus lm_head: 1024).  Q4_0 is
-    accepted as the JAX function accepts it; the Orpheus loader refuses Q4_0
-    until its int4 kernels are ported."""
+    dim to a multiple of `tile_n` (the Orpheus lm_head: 1024).  Which Q4_0
+    tensors take this layout rather than int4 is `linear_format`'s rule."""
     values, scales = tensor.to_int8_scales()
     out_dim, in_dim = values.shape
     wq = np.ascontiguousarray(values.T)
@@ -56,76 +84,162 @@ def pack_q8_weight(tensor, pad_n: bool = False, tile_n: int = 256) -> dict:
     return {"wq": wq, "scales": sc}
 
 
-def _dequant_matmul(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """f32 x @ (wq * scale), dequantizing 2048 columns at a time so the
-    temporaries stay small at the 157k-wide lm_head."""
-    K, N = wq.shape
+def pack_q4_nibbles(values: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7], shape [K, N] (K even) -> packed int8 [K/2, N]:
+    row i in the low nibble, row i + K/2 in the high nibble."""
+    K = values.shape[0]
+    if K % 2:
+        raise ValueError(f"pack_q4_nibbles: K must be even, got {K}")
+    u = values.view(torch.uint8) & 0xF
+    return (u[: K // 2] | (u[K // 2:] << 4)).view(torch.int8)
+
+
+def pack_q4_weight(tensor, pad_n: bool = False, tile_n: int = 256, device="cpu",
+                   timings: dict | None = None) -> dict:
+    """GGUFTensor (Q4_0, [out, in], in % 64 == 0) -> {"wq4": int8 [in/2,
+    out], "scales": float16 [in/32, out]} on `device`: the raw blocks (0.5625
+    bytes per weight) are uploaded and unpacked there with torch ops only.
+    `pad_n` as in `pack_q8_weight`.  `timings`, if given, adds the seconds
+    of the upload to "upload_s" and of the unpacking to "pack_s"."""
+    timings = {} if timings is None else timings
+    out_dim, in_dim = tensor.shape
+    t0 = time.perf_counter()
+    raw = torch.from_numpy(tensor.raw().copy()).to(device)
+    t1 = time.perf_counter()
+    blocks = raw.view(-1, Q4_0_BLOCK_BYTES)
+    d = blocks[:, :2].contiguous().view(torch.float16).view(out_dim, in_dim // QBLOCK)
+    qs = blocks[:, 2:].view(out_dim, in_dim // QBLOCK, 16)
+    # element j of a block is nibble q of qs[j % 16] (low, then high): q - 8
+    values = torch.cat([qs & 0xF, qs >> 4], dim=-1).view(torch.int8).view(out_dim, in_dim) - 8
+    wq4 = pack_q4_nibbles(values.t()).contiguous()
+    scales = d.t().contiguous()
+    pad = (-out_dim) % tile_n if pad_n else 0
+    if pad:
+        wq4 = torch.nn.functional.pad(wq4, (0, pad))
+        scales = torch.nn.functional.pad(scales, (0, pad))
+    if wq4.is_cuda:
+        torch.cuda.synchronize(wq4.device)
+    timings["upload_s"] = timings.get("upload_s", 0.0) + t1 - t0
+    timings["pack_s"] = timings.get("pack_s", 0.0) + time.perf_counter() - t1
+    return {"wq4": wq4, "scales": scales}
+
+
+# ---------------------------------------------------------- plain versions ---
+def _expand_scales(scales: torch.Tensor) -> torch.Tensor:
+    return scales.float().repeat_interleave(QBLOCK, dim=0)
+
+
+def _dequant_int8(wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    return wq.float() * _expand_scales(scales)
+
+
+def _dequant_int4(wq4: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """packed [K/2, n] -> f32 [K, n]: the int16 widening sign-extends each
+    byte, so an arithmetic >> 4 gives the signed high nibble."""
+    p = wq4.to(torch.int16)
+    lo = ((p & 0xF) ^ 8) - 8
+    return torch.cat([lo, p >> 4]).float() * _expand_scales(scales)
+
+
+def _dequant_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
+                    dequant) -> torch.Tensor:
+    """f32 x @ dequant(w, scales), `_PLAIN_COLS` output columns at a time."""
+    N = w.shape[1]
     out = torch.empty((x.shape[0], N), dtype=torch.float32, device=x.device)
-    for n0 in range(0, N, 2048):
-        sl = slice(n0, n0 + 2048)
-        s = scales[:, sl].float()
-        w = wq[:, sl].float() * s[:, None, :].expand(-1, QBLOCK, -1).reshape(K, -1)
-        out[:, sl] = x @ w
+    for n0 in range(0, N, _PLAIN_COLS):
+        sl = slice(n0, n0 + _PLAIN_COLS)
+        out[:, sl] = x @ dequant(w[:, sl], scales[:, sl])
     return out
 
 
 def qgemv_int8_plain(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """x [1, K] -> [1, N] f32.  x is rounded to bf16 first, as the TPU
     kernel rounds its block-diagonal activations."""
-    return _dequant_matmul(x.to(torch.bfloat16).float(), wq, scales)
+    return _dequant_matmul(x.to(torch.bfloat16).float(), wq, scales, _dequant_int8)
 
 
 def qgemm_int8_plain(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """x [M, K] -> [M, N] f32, all in f32."""
-    return _dequant_matmul(x.float(), wq, scales)
+    return _dequant_matmul(x.float(), wq, scales, _dequant_int8)
 
 
-def _check_cuda(name: str, x, wq, scales) -> tuple[int, int]:
-    K, N = wq.shape
-    if not (wq.is_cuda and scales.is_cuda and x.device == wq.device == scales.device):
-        raise ValueError(f"{name}: x, wq and scales must be on one CUDA device")
-    if wq.dtype != torch.int8 or scales.dtype != torch.float16:
-        raise ValueError(f"{name}: wq must be int8 and scales float16")
-    if not (wq.is_contiguous() and scales.is_contiguous()):
-        raise ValueError(f"{name}: wq and scales must be contiguous")
-    if wq.data_ptr() % 16 or scales.data_ptr() % 16:
-        raise ValueError(f"{name}: wq and scales must start 16-byte aligned (vector loads)")
-    if K % QBLOCK or N % 16 or tuple(scales.shape) != (K // QBLOCK, N):
-        raise ValueError(f"{name}: needs K % 32 == 0, N % 16 == 0, scales "
-                         f"[K/32, N]; got wq {tuple(wq.shape)}, scales "
+def qgemv_int4_plain(x: torch.Tensor, wq4: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """x [1, K] @ dequant(wq4 [K/2, N]) -> [1, N] f32, x rounded to bf16."""
+    return _dequant_matmul(x.to(torch.bfloat16).float(), wq4, scales, _dequant_int4)
+
+
+def qgemm_int4_plain(x: torch.Tensor, wq4: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ dequant(wq4 [K/2, N]) -> [M, N] f32, all in f32."""
+    return _dequant_matmul(x.float(), wq4, scales, _dequant_int4)
+
+
+# ------------------------------------------------------------------ kernels ---
+def _check_cuda(name: str, x, w, scales, packed: bool) -> tuple[int, int]:
+    """(K, N) of a kernel call, or ValueError for anything the kernel does
+    not take.  `packed`: w is int4 [K/2, N] (needs K % 64 == 0)."""
+    rows, N = w.shape
+    K = 2 * rows if packed else rows
+    kblock = 2 * QBLOCK if packed else QBLOCK
+    if not (w.is_cuda and scales.is_cuda and x.device == w.device == scales.device):
+        raise ValueError(f"{name}: x, weights and scales must be on one CUDA device")
+    if w.dtype != torch.int8 or scales.dtype != torch.float16:
+        raise ValueError(f"{name}: weights must be int8 and scales float16")
+    if not (w.is_contiguous() and scales.is_contiguous()):
+        raise ValueError(f"{name}: weights and scales must be contiguous")
+    if w.data_ptr() % 16 or scales.data_ptr() % 16:
+        raise ValueError(f"{name}: weights and scales must start 16-byte aligned "
+                         "(vector loads)")
+    if K % kblock or N % 16 or tuple(scales.shape) != (K // QBLOCK, N):
+        raise ValueError(f"{name}: needs K % {kblock} == 0, N % 16 == 0, scales "
+                         f"[K/32, N]; got weights {tuple(w.shape)}, scales "
                          f"{tuple(scales.shape)}")
     if x.shape[-1] != K:
-        raise ValueError(f"{name}: x has K={x.shape[-1]}, wq has K={K}")
+        raise ValueError(f"{name}: x has K={x.shape[-1]}, weights have K={K}")
     return K, N
 
 
-def _gemv_splits(K: int, N: int) -> tuple[int, int]:
-    """(splits, scale blocks per split): enough CTAs to fill the card, at
-    least one scale block per warp of a CTA."""
-    nblk = K // QBLOCK
+def _gemv_splits(nblk: int, N: int) -> tuple[int, int]:
+    """(splits, weight blocks per split) of `nblk` 32-row weight blocks:
+    enough CTAs to fill the card, at least one block per warp of a CTA."""
     n_col = -(-N // _GEMV_TILE_N)
     splits = max(1, min(-(-_GEMV_TARGET_CTAS // n_col), nblk // _GEMV_WARPS))
     per = -(-nblk // splits)
     return -(-nblk // per), per
 
 
+def _gemv(name: str, x, w, scales, packed: bool) -> torch.Tensor:
+    K, N = _check_cuda(name, x, w, scales, packed)
+    if x.shape[0] != 1:
+        raise ValueError(f"{name}: M must be 1, got {x.shape[0]}")
+    xb = x.to(torch.bfloat16).contiguous()
+    out = torch.empty((1, N), device=x.device, dtype=torch.float32)
+    splits, per = _gemv_splits(w.shape[0] // QBLOCK, N)
+    partial = (torch.empty((splits, N), device=x.device, dtype=torch.float32)
+               if splits > 1 else out)
+    err = getattr(_ext.load(), name)(xb.data_ptr(), w.data_ptr(), scales.data_ptr(),
+                                     partial.data_ptr(), out.data_ptr(), K, N, splits, per,
+                                     _ext.stream_ptr(x))
+    _ext.check(name, err)
+    return out
+
+
+def _gemm(name: str, x, w, scales, packed: bool) -> torch.Tensor:
+    K, N = _check_cuda(name, x, w, scales, packed)
+    M = x.shape[0]
+    xf = x.float().contiguous()
+    out = torch.empty((M, N), device=x.device, dtype=torch.float32)
+    err = getattr(_ext.load(), name)(xf.data_ptr(), w.data_ptr(), scales.data_ptr(),
+                                     out.data_ptr(), M, K, N, _ext.stream_ptr(x))
+    _ext.check(name, err)
+    return out
+
+
 def qgemv_int8(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """x [1, K] @ dequant(wq, scales) -> [1, N] f32 (M == 1)."""
     if not x.is_cuda:
         return qgemv_int8_plain(x, wq, scales)
-    K, N = _check_cuda("qgemv_int8", x, wq, scales)
-    if x.shape[0] != 1:
-        raise ValueError(f"qgemv_int8: M must be 1, got {x.shape[0]}")
-    xb = x.to(torch.bfloat16).contiguous()
-    out = torch.empty((1, N), device=x.device, dtype=torch.float32)
-    splits, per = _gemv_splits(K, N)
-    partial = (torch.empty((splits, N), device=x.device, dtype=torch.float32)
-               if splits > 1 else out)
-    err = _ext.load().qgemv_int8(xb.data_ptr(), wq.data_ptr(), scales.data_ptr(),
-                                 partial.data_ptr(), out.data_ptr(), K, N, splits,
-                                 per, _ext.stream_ptr(x))
+    out = _gemv("qgemv_int8", x, wq, scales, packed=False)
     qgemv_int8.launches += 1
-    _ext.check("qgemv_int8", err)
     return out
 
 
@@ -133,19 +247,33 @@ def qgemm_int8(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch
     """x [M, K] @ dequant(wq, scales) -> [M, N] f32 (M > 1)."""
     if not x.is_cuda:
         return qgemm_int8_plain(x, wq, scales)
-    K, N = _check_cuda("qgemm_int8", x, wq, scales)
-    M = x.shape[0]
-    xf = x.float().contiguous()
-    out = torch.empty((M, N), device=x.device, dtype=torch.float32)
-    err = _ext.load().qgemm_int8(xf.data_ptr(), wq.data_ptr(), scales.data_ptr(),
-                                 out.data_ptr(), M, K, N, _ext.stream_ptr(x))
+    out = _gemm("qgemm_int8", x, wq, scales, packed=False)
     qgemm_int8.launches += 1
-    _ext.check("qgemm_int8", err)
+    return out
+
+
+def qgemv_int4(x: torch.Tensor, wq4: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """x [1, K] @ dequant(wq4 [K/2, N], scales) -> [1, N] f32 (M == 1)."""
+    if not x.is_cuda:
+        return qgemv_int4_plain(x, wq4, scales)
+    out = _gemv("qgemv_int4", x, wq4, scales, packed=True)
+    qgemv_int4.launches += 1
+    return out
+
+
+def qgemm_int4(x: torch.Tensor, wq4: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ dequant(wq4 [K/2, N], scales) -> [M, N] f32 (M > 1)."""
+    if not x.is_cuda:
+        return qgemm_int4_plain(x, wq4, scales)
+    out = _gemm("qgemm_int4", x, wq4, scales, packed=True)
+    qgemm_int4.launches += 1
     return out
 
 
 qgemv_int8.launches = 0
 qgemm_int8.launches = 0
+qgemv_int4.launches = 0
+qgemm_int4.launches = 0
 
 
 def quantized_matmul(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -159,9 +287,23 @@ def quantized_matmul(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) ->
     return qgemm_int8(x, wq, scales)
 
 
+def quantized_matmul_q4(x: torch.Tensor, wq4: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (or [K]) @ dequant(packed wq4 [K/2, N], scales [K/32, N]) ->
+    f32, routed as `quantized_matmul` routes the int8 layout."""
+    if x.ndim == 1:
+        return quantized_matmul_q4(x[None], wq4, scales)[0]
+    if x.shape[0] == 1:
+        return qgemv_int4(x, wq4, scales)
+    return qgemm_int4(x, wq4, scales)
+
+
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """Dense-or-quantized linear: p is {"w": [K, N]} or {"wq", "scales"}.
-    A tile-padded weight returns its padded columns; the caller slices."""
+    """Dense-or-quantized linear: p is {"w": [K, N]}, {"wq", "scales"} (int8)
+    or {"wq4", "scales"} (packed int4).  A tile-padded weight returns its
+    padded columns; the caller slices."""
+    if "wq4" in p:
+        return quantized_matmul_q4(x, p["wq4"], p["scales"])
     if "wq" in p:
         return quantized_matmul(x, p["wq"], p["scales"])
     return x @ p["w"].to(x.dtype)
