@@ -11,12 +11,16 @@ Phases (any failure exits non-zero, before the final line):
   2. build: nvcc of tts_tpu_torch/csrc into build/, with ptxas register/spill lines
   3. kernels against their plain PyTorch versions at the Orpheus-3B shapes
      (the GEMMs at every linear's (K, N) and at M = 8, 32 and the prompt
-     lengths of phase 5), with device times (CUDA graphs replayed plain,
-     kernel, [library, library,] kernel, plain), achieved GB/s, and each
-     call's bound: the larger of its bytes over 3.35 TB/s and its
-     operations over 989 TFLOP/s.  The library call, where one computes the
-     same function: scaled_dot_product_attention for bf16 flash-decode,
-     torch._weight_int4pack_mm for the int4 products
+     lengths of phase 5; flash-decode at the edges of its chunks), with
+     device times (CUDA graphs replayed plain, kernel, [library, library,]
+     kernel, plain), achieved GB/s, and each call's bound: the larger of its
+     bytes over 3.35 TB/s and its operations over 989 TFLOP/s.  The library
+     call, where one computes the same function: scaled_dot_product_attention
+     for bf16 flash-decode, torch._weight_int4pack_mm for the int4 products.
+     qgemm_int4 also shows its CTAs and K splits as torch.profiler recorded
+     its launch (held to the plan; at least one CTA per SM on the path) and
+     gives identical bits twice; flash_decode must be one device kernel per
+     call (torch.profiler)
   4. model: tiny Q8_0 and Q4_0 models' CUDA forwards checked against the
      port's CPU (plain) forwards, then seeded random full-width Orpheus-3B
      GGUFs (28 layers, F16 embedding, full-width SNAC), Q8_0 and Q4_0,
@@ -64,6 +68,9 @@ GEMV_TOL = GEMM_TOL = 1e-4         # same f32 sums in another order
 # output to bf16 (2^-9 each)
 INT4_LIBRARY_TOL = 1e-2
 FLASH_TOL = 4e-3                   # bf16(p) against chunk vs running max: <= 2^-9
+# flash-decode positions: one live slot, the edges of the kernel's 64-position
+# chunks and of the plain version's 512, and the full cache
+FLASH_POSITIONS = (0, 63, 64, 511, 512, 2047, 3583)
 TINY_TOL = 1e-2                    # tiny model logits, CUDA vs CPU (see phase 4)
 TINY = dict(n_layers=2, hidden=256, heads=4, kv_heads=2, head_dim=128, ffn=512, vocab=VOCAB,
             snac_embd=96, snac_channels=(48, 24, 12, 6))
@@ -230,10 +237,13 @@ def kernels():
     phase("3 kernels against plain")
     import torch
 
+    from tts_tpu_torch.ops import _ext
     from tts_tpu_torch.ops import attention as ta
     from tts_tpu_torch.ops import qmatmul as tq
 
     dev = torch.device("cuda")
+    sms = _ext.sm_count(0)
+    print(f"{sms} SMs")
     results = []
 
     def record(name, source, replaces, rows):
@@ -252,14 +262,16 @@ def kernels():
                         "library_ms": sum(lib) if lib else None,
                         "rows": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                                     "bound_by", "library_ms", "library_rel",
-                                                    "rel")}
+                                                    "rel", "ctas", "splits", "device_kernels")
+                                           if k in r}
                                  for r in rows]})
 
-    def row(shape, a, r, ms, plain_ms, nbytes, flops, library_ms=None, library_rel=None):
+    def row(shape, a, r, ms, plain_ms, nbytes, flops, library_ms=None, library_rel=None,
+            **launch):
         b_ms, by = bound(nbytes, flops)
         return {"shape": shape, "abs": a, "rel": r, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms,
-                "library_rel": library_rel}
+                "library_rel": library_rel, **launch}
 
     def int4_library(fns, x, ws, want, label):
         """Add torch._weight_int4pack_mm on the same weights to `fns`, after
@@ -297,22 +309,42 @@ def kernels():
                 fns = {"plain": lambda j: plain(x, *ws[j % len(ws)]),
                        "kernel": lambda j: fn(x, *ws[j % len(ws)])}
                 lr = int4_library(fns, x, ws, want, f"{name} M={M}") if bits == 4 else None
+                launch = {}
+                if fn is tq.qgemm_int4:
+                    # the GEMM's grid (column tiles, M tiles, K splits) as
+                    # torch.profiler recorded its launch, held to the plan
+                    acts = _ext.device_activity(lambda: fn(x, *ws[0]))
+                    grids = [a["grid"] for a in acts if "qgemm_int4" in a["name"]]
+                    check(len(grids) == 1 and grids[0] is not None,
+                          f"qgemm_int4 {name} M={M}: the profiler saw {acts}")
+                    m_tile, tile_n, splits, _ = tq.gemm4_plan(M, K, N, sms)
+                    check(grids[0] == [-(-N // tile_n), -(-M // m_tile), splits],
+                          f"qgemm_int4 {name} M={M}: launched grid {grids[0]}, planned "
+                          f"{m_tile} tokens x {tile_n} columns x {splits} splits")
+                    launch = {"ctas": math.prod(grids[0]), "splits": grids[0][2],
+                              "device_kernels": len(acts)}
+                    check(name == "lm_head" or launch["ctas"] >= sms,
+                          f"qgemm_int4 {name} M={M}: {launch['ctas']} CTAs < {sms} SMs")
+                    check(torch.equal(fn(x, *ws[0]), fn(x, *ws[0])),
+                          f"qgemm_int4 {name} M={M}: two calls differ")
                 t = timed(fns, {"plain": 3, "kernel": iters, "library": iters})
                 wbytes = K * N * bits // 8 + K // 32 * N * 2
                 xbytes = 2 if M == 1 else 4
                 rows.append(row(f"{name} M={M} K={K} N={N}", a, r, t["kernel"], t["plain"],
                                 wbytes + M * K * xbytes + M * N * 4, 2 * M * K * N,
-                                t.get("library"), lr))
+                                t.get("library"), lr, **launch))
                 tflops = 2 * M * K * N / (t["kernel"] * 1e-3) / 1e12
                 gbs = wbytes / (t["kernel"] * 1e-3) / 1e9
                 lib = f"  library {t['library'] * 1e3:8.1f} us" if "library" in t else ""
                 lib_note = f"  (library rel_err {lr:.1e})" if lr is not None else ""
+                grid = (f"  {launch['ctas']} CTAs ({launch['splits']} splits, "
+                        f"{launch['device_kernels']} device kernels)" if launch else "")
                 print(f"{fn.__name__} {name:8s} M={M:2d} K={K:5d} N={N:6d}  rel_err {r:.2e} "
                       f"(tol {tol:.0e})  kernel {t['kernel'] * 1e3:8.1f} us  plain "
                       f"{t['plain'] * 1e3:9.1f} us{lib}  bound "
                       f"{rows[-1]['bound_ms'] * 1e3:6.1f} us  {tflops:5.2f} TFLOP/s  "
                       f"{gbs:7.1f} GB/s = {gbs * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s"
-                      f"{lib_note}")
+                      f"{grid}{lib_note}")
                 check(r < tol, f"{fn.__name__} {name} M={M}: rel err {r} >= {tol}")
             del ws
         record(fn.__name__, f"tts_tpu_torch/csrc/qmatmul{'4' if bits == 4 else ''}.cu",
@@ -334,13 +366,18 @@ def kernels():
             v = torch.randn((HKV, S_CACHE, HS), generator=g, device=dev).bfloat16()
             ks = vs = None
         q = torch.randn((HQ, HS), generator=g, device=dev)
+        counters = ta.arrival_counters(HKV, dev)
         kind = "int8" if quant else "bf16"
-        for pos in (0, 511, 512, 2047, 3583):
+        for pos in FLASH_POSITIONS:
             pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
             want = ta.flash_decode_plain(q, k, v, pos, ks, vs)
-            a, r = rel_err(ta.flash_decode(q, k, v, pos_t, ks, vs), want)
+            a, r = rel_err(ta.flash_decode(q, k, v, pos_t, ks, vs, counters), want)
+            names = [e["name"] for e in _ext.device_activity(
+                lambda: ta.flash_decode(q, k, v, pos_t, ks, vs, counters))]
+            check(len(names) == 1, f"flash_decode {pos}: {len(names)} device kernels per call "
+                  f"({names}), not 1")
             fns = {"plain": lambda j: ta.flash_decode_plain(q, k, v, pos, ks, vs),
-                   "kernel": lambda j: ta.flash_decode(q, k, v, pos_t, ks, vs)}
+                   "kernel": lambda j: ta.flash_decode(q, k, v, pos_t, ks, vs, counters)}
             lr = None
             if not quant:
                 # the yardstick: one PyTorch call on the live prefix, bf16 q
@@ -352,13 +389,14 @@ def kernels():
             nbytes = 2 * HQ * HS * 4 + live * (2 * HS * k.element_size() + (8 if quant else 0))
             rows.append(row(f"{kind} Hq={HQ} Hkv={HKV} S={S_CACHE} pos={pos}", a, r,
                             t["kernel"], t["plain"], nbytes, 4 * HQ * (pos + 1) * HS,
-                            t.get("library"), lr))
+                            t.get("library"), lr, device_kernels=len(names)))
             gbs = nbytes / (t["kernel"] * 1e-3) / 1e9
             lib = f"  library {t['library'] * 1e3:7.1f} us" if "library" in t else ""
             lib_note = f"  (library rel_err {lr:.1e})" if lr is not None else ""
             print(f"flash_decode {kind} pos={pos:4d}  rel_err {r:.2e} (tol {FLASH_TOL:.0e})  "
                   f"kernel {t['kernel'] * 1e3:7.1f} us  plain {t['plain'] * 1e3:8.1f} us{lib}  "
-                  f"bound {rows[-1]['bound_ms'] * 1e3:5.1f} us  {gbs:7.1f} GB/s{lib_note}")
+                  f"bound {rows[-1]['bound_ms'] * 1e3:5.2f} us  {gbs:7.1f} GB/s  "
+                  f"{len(names)} device kernel per call{lib_note}")
             check(r < FLASH_TOL, f"flash_decode {kind} pos={pos}: rel err {r} >= {FLASH_TOL}")
     record("flash_decode", "tts_tpu_torch/csrc/attention.cu", "tts_tpu/ops/attention.py:30",
            rows)

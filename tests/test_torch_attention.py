@@ -88,3 +88,82 @@ def test_quantize_kv_matches_jax(rng):
     gq, gsc = ta.quantize_kv(torch.from_numpy(x))
     np.testing.assert_array_equal(gq.numpy(), np.asarray(wq))
     np.testing.assert_array_equal(gsc.numpy(), np.asarray(wsc))
+
+
+def emulate_flash_decode(q, k, v, pos, ks=None, vs=None):
+    """The Hopper flash_decode's arithmetic on the CPU: chunks of
+    KERNEL_CHUNK positions, each over its live slots only with its softmax
+    against its own max m_c (sum l_c, acc_c of bf16(p * v_scale) v), then
+    the last CTA's combine: w_c = e^(m_c - M), out = sum w_c acc_c /
+    sum w_c l_c.  A single live chunk writes acc / l directly."""
+    Hq, hs = q.shape
+    Hkv = k.shape[0]
+    chunk = ta.KERNEL_CHUNK
+    qg = q.reshape(Hkv, Hq // Hkv, hs).to(torch.bfloat16).float()
+    parts = []
+    for c in range(pos // chunk + 1):
+        sl = slice(c * chunk, min((c + 1) * chunk, pos + 1))
+        logits = torch.einsum("hgd,hsd->hgs", qg, k[:, sl].float()) / hs ** 0.5
+        if ks is not None:
+            logits = logits * ks[:, None, sl]
+        m = logits.amax(-1, keepdim=True)
+        p = torch.exp(logits - m)
+        pv = p if vs is None else p * vs[:, None, sl]
+        acc = torch.einsum("hgs,hsd->hgd", pv.to(torch.bfloat16).float(), v[:, sl].float())
+        parts.append((m, p.sum(-1, keepdim=True), acc))
+    if len(parts) == 1:
+        _, l, acc = parts[0]
+        return (acc / l).reshape(Hq, hs)
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    acc = sum(wc * a for wc, (_, _, a) in zip(w, parts))
+    l = sum(wc * lc for wc, (_, lc, _) in zip(w, parts))
+    return (acc / l).reshape(Hq, hs)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("pos", [0, ta.KERNEL_CHUNK - 1, ta.KERNEL_CHUNK, 511, 3583])
+def test_flash_decode_kernel_arithmetic_matches_plain(quant, pos):
+    """The kernel's chunking and last-CTA combine (emulated) stay within the
+    card test's 4e-3 of the plain version at the edges of its chunks and at
+    a full Orpheus-3B-length cache (3 query heads per KV head, as there);
+    rows past pos hold NaN and never reach the output."""
+    rng = np.random.default_rng(pos + 7 * quant)
+    hq, hkv, s = 6, 2, 3584
+    q = torch.from_numpy(rng.standard_normal((hq, HS)).astype(np.float32))
+    if quant:
+        k, v = (torch.from_numpy(rng.integers(-127, 128, (hkv, s, HS)).astype(np.int8))
+                for _ in range(2))
+        ks, vs = (torch.from_numpy((rng.random((hkv, s)) * 0.02 + 1e-3).astype(np.float32))
+                  for _ in range(2))
+        ks[:, pos + 1:] = vs[:, pos + 1:] = float("nan")
+    else:
+        k, v = (torch.from_numpy(rng.standard_normal((hkv, s, HS)).astype(np.float32))
+                .bfloat16() for _ in range(2))
+        k[:, pos + 1:] = v[:, pos + 1:] = float("nan")
+        ks = vs = None
+    want = ta.flash_decode_plain(q, k, v, pos, ks, vs)
+    got = emulate_flash_decode(q, k, v, pos, ks, vs)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() < 4e-3
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_kv_cache_owns_zeroed_arrival_counters(kv_quant):
+    """Each KV cache carries its own flash-decode arrival counters, int32
+    zeros, one per KV head: two caches never share a set.  On the CPU
+    flash_decode takes them and runs its plain version."""
+    from tts_tpu_torch.models import orpheus as to
+
+    cfg = to.OrpheusConfig(n_layers=1, hidden_size=256, n_attn_heads=HQ,
+                           n_kv_attn_heads=HKV, head_size=HS, kv_quant=kv_quant,
+                           max_context_length=64, max_generation_size=448)
+    a, b = to.init_kv_cache(cfg), to.init_kv_cache(cfg)
+    for cache in (a, b):
+        assert cache["counters"].dtype == torch.int32
+        assert cache["counters"].tolist() == [0] * HKV
+    assert a["counters"].data_ptr() != b["counters"].data_ptr()
+    q, k, v, ks, vs = _torch(*make_inputs(3, kv_quant))
+    pos = torch.tensor([700], dtype=torch.int32)
+    torch.testing.assert_close(ta.flash_decode(q, k, v, pos, ks, vs, a["counters"]),
+                               ta.flash_decode_plain(q, k, v, 700, ks, vs), rtol=0, atol=0)

@@ -9,6 +9,7 @@ without one; the file imports no jax, so it runs where only the port does:
 import pytest
 import torch
 
+from tts_tpu_torch.ops import _ext
 from tts_tpu_torch.ops import attention as ta
 from tts_tpu_torch.ops import qmatmul as tq
 
@@ -111,11 +112,13 @@ def test_qgemv_int4_matches_plain(cuda, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [2, 8, 32, 77, 1024])
-@pytest.mark.parametrize("K,N", [ORPHEUS_SHAPES[i] for i in (0, 2, 3, 4)])
+@pytest.mark.parametrize("M", [2, 8, 16, 17, 52, 64, 77, 1024, 2048])
+@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
 def test_qgemm_int4_matches_plain(cuda, M, K, N):
-    """f32 FMA over exactly dequantized int4 weights, the two nibble planes
-    per k-tile, another summation order: relative error bound 1e-4."""
+    """Tensor cores on exact integer weights with x split into bf16 hi + lo
+    (about 16 bits of x), block scales on the f32 partial sums, split-K:
+    relative error bound 1e-4 against the f32 plain version.  Every M tile
+    (8-64), ragged M (17, 77), and 2048 (Dia's cross-KV) are covered."""
     wq4, sc = rand_q4(K, N, cuda, K + N + M)
     x = torch.randn((M, K), device=cuda)
     n = tq.qgemm_int4.launches
@@ -126,8 +129,22 @@ def test_qgemm_int4_matches_plain(cuda, M, K, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 64])
+def test_qgemm_int4_is_deterministic(cuda, M):
+    """Split-K partials are added in split order (no atomics): two calls
+    give identical bits, at down (K = 8192, the most splits)."""
+    K, N = ORPHEUS_SHAPES[3]
+    assert tq.gemm4_plan(M, K, N, _ext.sm_count(cuda.index or 0))[2] > 1
+    wq4, sc = rand_q4(K, N, cuda, M)
+    x = torch.randn((M, K), device=cuda)
+    a, b = tq.qgemm_int4(x, wq4, sc), tq.qgemm_int4(x, wq4, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("pos", [0, 511, 512, 2047, 3583])
+@pytest.mark.parametrize("pos", [0, 1, 62, 63, 64, 65, 127, 128, 511, 512, 2047, 3583])
 def test_flash_decode_matches_plain(cuda, quant, pos):
     """The kernel takes each chunk's p against that chunk's max, the plain
     version against the running max, so bf16(p) rounds differently past the
@@ -136,11 +153,89 @@ def test_flash_decode_matches_plain(cuda, quant, pos):
     not reach the kernel's output (the plain version masks them too)."""
     q, k, v, ks, vs = rand_attention(pos, quant, cuda)
     pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
-    got = ta.flash_decode(q, k, v, pos_t, ks, vs)
+    got = ta.flash_decode(q, k, v, pos_t, ks, vs, ta.arrival_counters(HKV, cuda))
     torch.cuda.synchronize()
     want = ta.flash_decode_plain(q, k, v, pos, ks, vs)
     assert torch.isfinite(got).all()
     assert rel_err(got, want) < 4e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("pos", [0, 700])
+def test_flash_decode_is_one_kernel(cuda, quant, pos):
+    """The combine runs in the last CTA of each head: one launch per call."""
+    q, k, v, ks, vs = rand_attention(pos, quant, cuda)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    counters = ta.arrival_counters(HKV, cuda)
+    acts = _ext.device_activity(lambda: ta.flash_decode(q, k, v, pos_t, ks, vs, counters))
+    assert len(acts) == 1 and "flash_decode" in acts[0]["name"], acts
+    assert acts[0]["grid"] == [HKV, S // ta.KERNEL_CHUNK, 1], acts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 64])
+def test_qgemm_int4_launches_the_planned_grid(cuda, M):
+    """The profiler's record of the launch shows the grid gemm4_plan chose,
+    and the split-K pass after it."""
+    K, N = ORPHEUS_SHAPES[3]
+    m_tile, tile_n, splits, _ = tq.gemm4_plan(M, K, N, _ext.sm_count(cuda.index or 0))
+    wq4, sc = rand_q4(K, N, cuda, M)
+    x = torch.randn((M, K), device=cuda)
+    acts = _ext.device_activity(lambda: tq.qgemm_int4(x, wq4, sc))
+    assert [a["grid"] for a in acts if "qgemm_int4" in a["name"]] == [
+        [-(-N // tile_n), -(-M // m_tile), splits]], acts
+    assert len(acts) == 2 and "splitk_sum" in acts[1]["name"], acts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_flash_decode_graph_replays_as_pos_advances(cuda, quant):
+    """One capture, replayed with pos moved on the device between replays,
+    matches the plain version every time: the launch does not depend on pos,
+    and the arrival counters are back at zero after every replay."""
+    q, k, v, ks, vs = rand_attention(S - 1, quant, cuda)
+    pos_t = torch.tensor([0], dtype=torch.int32, device=cuda)
+    counters = ta.arrival_counters(HKV, cuda)
+    ta.flash_decode(q, k, v, pos_t, ks, vs, counters)   # warm, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ta.flash_decode(q, k, v, pos_t, ks, vs, counters)
+    for pos in (0, 63, 64, 700, 3583, 5, 130, 3583):
+        pos_t.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert rel_err(out, ta.flash_decode_plain(q, k, v, pos, ks, vs)) < 4e-3, pos
+    assert not counters.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_flash_decode_on_two_streams_with_their_own_counters(cuda, quant):
+    """Two caches, each with its own counters, decoded on two streams at
+    once (as two models served side by side would be): every call matches
+    the plain version, and both sets of counters end at zero.  Each stream
+    first sleeps on the device while the host queues all the calls, so
+    the two streams' launches run concurrently."""
+    runs = []
+    for pos in (3583, 2000):
+        q, k, v, ks, vs = rand_attention(pos, quant, cuda)
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+        runs.append((torch.cuda.Stream(), (q, k, v, pos_t, ks, vs, ta.arrival_counters(HKV, cuda)),
+                     ta.flash_decode_plain(q, k, v, pos, ks, vs), []))
+    torch.cuda.synchronize()
+    for stream, *_ in runs:
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(100_000_000)             # ~50 ms of device time
+    for _ in range(50):
+        for stream, args, _, outs in runs:
+            with torch.cuda.stream(stream):
+                outs.append(ta.flash_decode(*args))
+    torch.cuda.synchronize()
+    for _, args, want, outs in runs:
+        assert max(rel_err(o, want) for o in outs) < 4e-3
+        assert not args[-1].any()
 
 
 @pytest.mark.cuda
@@ -166,5 +261,8 @@ def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
         tq.qgemm_int4(x.repeat(2, 1), wq4, sc4.float())                # scales not f16
     assert tq.qgemv_int4.launches == n
     q, k, v, _, _ = rand_attention(5, False, cuda)
+    counters = ta.arrival_counters(HKV, cuda)
     with pytest.raises(ValueError):
-        ta.flash_decode(q, k, v, torch.tensor([5], device=cuda))      # pos must be int32
+        ta.flash_decode(q, k, v, torch.tensor([5], device=cuda), counters=counters)  # int32 pos
+    with pytest.raises(ValueError):
+        ta.flash_decode(q, k, v, torch.tensor([5], dtype=torch.int32, device=cuda))  # counters

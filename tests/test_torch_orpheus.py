@@ -332,6 +332,20 @@ def test_runner_errors(gguf):
         tr.generate("a " * 2000, GenerationConfig())
 
 
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_runner_takes_its_device_from_its_params(tiny, qtype):
+    """A runner built from CPU params without device= runs on the CPU (the
+    default follows the params; with none to follow it is the card)."""
+    tr = runner_from_file(tiny(qtype)[0], device="cpu")
+    runner = to.OrpheusRunner(tr.cfg, tr.params, tr.tokenizer, tr.snac)
+    assert runner.device == torch.device("cpu")
+    runner.cfg = dataclasses.replace(runner.cfg, max_context_length=CTX, max_generation_size=GEN)
+    out = runner.generate("hi", GenerationConfig(seed=1, max_tokens=8, top_k=50))
+    assert runner._cache["k"].device.type == "cpu"
+    assert out.timings["decode_steps"] > 0
+    assert to.OrpheusRunner(tr.cfg, {}, tr.tokenizer, tr.snac).device == torch.device("cuda")
+
+
 def test_cuda_without_a_card_raises(gguf):
     """No silent CPU fallback: device='cuda' on a machine without a card."""
     if torch.cuda.is_available():

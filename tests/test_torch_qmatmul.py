@@ -17,6 +17,7 @@ from tts_tpu.core.gguf import GGMLType, GGUFWriter  # noqa: E402
 from tts_tpu.core.gguf import GGUFFile as JaxGGUFFile  # noqa: E402
 from tts_tpu.ops import qmatmul as jq  # noqa: E402
 from tts_tpu_torch.core.gguf import GGUFFile  # noqa: E402
+from tts_tpu_torch.ops import _ext  # noqa: E402
 from tts_tpu_torch.ops import qmatmul as tq  # noqa: E402
 
 torch.set_num_threads(1)
@@ -186,3 +187,120 @@ def test_cpu_wrappers_launch_nothing(rng):
     torch.testing.assert_close(tq.qgemv_int4(x[:1], *args), tq.qgemv_int4_plain(x[:1], *args))
     torch.testing.assert_close(tq.qgemm_int4(x, *args), tq.qgemm_int4_plain(x, *args))
     assert [k.launches for k in kernels] == before
+
+
+# Orpheus-3B's linears at M > 1 (K, N): qkv, o, gateup, down
+ORPHEUS_GEMMS = {"qkv": (3072, 5120), "o": (3072, 3072), "gateup": (3072, 16384),
+                 "down": (8192, 3072)}
+SMS = 132      # streaming multiprocessors of an H100 SXM
+
+
+def test_kernel_geometry_is_one_source():
+    """The launch geometry that the plans read is what nvcc compiles the
+    kernels with: every entry of _ext.GEOMETRY is a -D define of the build,
+    and the split plan keeps each split at least the ring's depth."""
+    flags = set(_ext.NVCC_FLAGS)
+    assert all(f"-DTTS_{k}={v}" in flags for k, v in _ext.GEOMETRY.items())
+    stages = _ext.GEOMETRY["G4_STAGES"]
+    for K in (3072, 8192):
+        _, _, splits, per = tq.gemm4_plan(8, K, 3072, SMS)
+        assert splits > 1 and per >= stages
+
+
+def split_blocks(M, K, N):
+    """The packed blocks each split of gemm4_plan(M, K, N) takes, in order."""
+    _, _, splits, per = tq.gemm4_plan(M, K, N, SMS)
+    nblk = K // 64
+    return [list(range(s * per, min((s + 1) * per, nblk))) for s in range(splits)]
+
+
+@pytest.mark.parametrize("M", [8, 64])
+@pytest.mark.parametrize("name", list(ORPHEUS_GEMMS))
+def test_gemm4_plan_fills_the_card_at_orpheus_shapes(name, M):
+    """At every Orpheus-3B shape of the prefill (M = 64) and of an 8-token
+    verify step, the split-K plan launches at least one CTA per SM, and its
+    M tile holds the M rows in one tile."""
+    K, N = ORPHEUS_GEMMS[name]
+    m_tile, tile_n, splits, _ = tq.gemm4_plan(M, K, N, SMS)
+    assert m_tile == M
+    assert -(-N // tile_n) * -(-M // m_tile) * splits >= SMS
+    assert sum(split_blocks(M, K, N), []) == list(range(K // 64))
+
+
+@pytest.mark.parametrize("M", [2, 9, 17, 33, 77, 1024, 2048])
+def test_gemm4_plan_covers_every_packed_block_once(M):
+    """Any M up to 2048 and any K % 64 == 0: the splits take every packed
+    block exactly once, in order, none is empty, and the M tile is the
+    smallest of 8-64 tokens that holds M (64 past that)."""
+    for K in (64, 128, 512, 3072, 8192):
+        for N in (256, 3072, 157696):
+            m_tile = tq.gemm4_plan(M, K, N, SMS)[0]
+            parts = split_blocks(M, K, N)
+            assert sum(parts, []) == list(range(K // 64)) and all(parts)
+            assert m_tile == min(t for t in (8, 16, 32, 64) if t >= min(M, 64))
+
+
+def int4_planes_as_the_kernel_unpacks(wq4: torch.Tensor) -> list[torch.Tensor]:
+    """The low and high nibble planes of packed int4 [K/2, N] as f32, the
+    Hopper kernel's way: bf16 bits 0x4300 | (u ^ 8) are 136 + q, less 136."""
+    u = wq4.to(torch.int16) & 0xFF
+    return [(((u >> shift) & 0xF) ^ 0x8 | 0x4300).view(torch.bfloat16).float() - 136
+            for shift in (0, 4)]
+
+
+def emulate_qgemm_int4(x: torch.Tensor, wq4: torch.Tensor, scales: torch.Tensor,
+                       split_x: bool = True) -> torch.Tensor:
+    """The Hopper qgemm_int4's arithmetic on the CPU: x split into bf16 hi
+    and lo (exact bf16 x integer products, summed in f32 by the tensor
+    cores), each 32-row block's f32 partial sum times its f16 scale, the
+    splits of gemm4_plan added in split order.  split_x=False drops lo."""
+    M, K = x.shape
+    half, N = K // 2, wq4.shape[1]
+    hi = x.to(torch.bfloat16).float()
+    lo = (x - hi).to(torch.bfloat16).float() if split_x else torch.zeros_like(x)
+    planes = int4_planes_as_the_kernel_unpacks(wq4)
+    out = torch.zeros((M, N))
+    for blocks in split_blocks(M, K, N):
+        acc = torch.zeros((M, N))
+        for b in blocks:
+            rows = slice(b * 32, (b + 1) * 32)
+            for p, w in enumerate(planes):
+                cols = slice(p * half + b * 32, p * half + (b + 1) * 32)
+                part = hi[:, cols] @ w[rows] + lo[:, cols] @ w[rows]
+                acc += part * scales[b + p * (half // 32)].float()
+        out += acc
+    return out
+
+
+def test_int4_unpack_gives_the_exact_integers(rng):
+    """Every byte value: the magic-bias unpack gives the signed nibbles
+    exactly (the low one sign-extended, the high one an arithmetic shift)."""
+    wq4 = torch.arange(-128, 128, dtype=torch.int8).reshape(16, 16)
+    lo, hi = int4_planes_as_the_kernel_unpacks(wq4)
+    w = wq4.to(torch.int16)
+    assert torch.equal(lo, ((w << 12) >> 12).float())
+    assert torch.equal(hi, (w >> 4).float())
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["normal", "wide"])
+@pytest.mark.parametrize("M", [2, 8, 64])
+def test_qgemm_int4_arithmetic_matches_plain(M, wide):
+    """The kernel's arithmetic (emulated) is within the card test's 1e-4 of
+    the f32 plain version, also for x spanning 1e-3 to 1e3 in magnitude;
+    bf16(x) alone (no lo term) would miss 1e-4 by far.  K = 1024 splits in
+    four, so the split order is exercised too."""
+    K, N = 1024, 256
+    rng = np.random.default_rng(M + 100 * wide)
+    wq4, sc = make_q4(rng, K, N)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    if wide:
+        x = np.sign(x) * 10.0 ** rng.uniform(-3, 3, (M, K)).astype(np.float32)
+    args = (torch.from_numpy(x), torch.from_numpy(wq4), torch.from_numpy(sc.astype(np.float16)))
+    assert len(split_blocks(M, K, N)) > 1
+    want = tq.qgemm_int4_plain(*args)
+
+    def rel(got):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    assert rel(emulate_qgemm_int4(*args)) < 1e-4
+    assert rel(emulate_qgemm_int4(*args, split_x=False)) > 1e-4

@@ -1,7 +1,8 @@
 // The parts that the int8 (qmatmul.cu) and int4 (qmatmul4.cu) weight-quantized
-// products share: tile shapes, the GEMV's cross-warp sum and split-K pass,
-// and the GEMM's shared-memory tile steps.  Each translation unit that
-// includes this gets its own copy (inline or static).
+// products share: tile shapes, the GEMVs' cross-warp sum, the split-K pass
+// (the GEMVs and qgemm_int4), and qgemm_int8's shared-memory tile steps.
+// Each translation unit that includes this gets its own copy (inline or
+// static).
 #pragma once
 
 #include "common.cuh"
@@ -11,9 +12,11 @@ namespace tts {
 constexpr int QBLOCK = 32;   // rows per f16 scale block
 
 // ---- M == 1 ----------------------------------------------------------------
+// TTS_* values come from ops/_ext.py GEOMETRY, which the host plans read too
 constexpr int GEMV_COLS = 16;                    // columns per thread (16 B)
-constexpr int GEMV_WARPS = 4;                    // warps split a CTA's k-range
-constexpr int GEMV_TILE_N = 32 * GEMV_COLS;      // 512 columns per CTA
+constexpr int GEMV_WARPS = TTS_GEMV_WARPS;       // warps split a CTA's k-range
+constexpr int GEMV_TILE_N = TTS_GEMV_TILE_N;     // columns per CTA
+static_assert(GEMV_TILE_N == 32 * GEMV_COLS, "a warp's lanes take a CTA's columns");
 
 // A GEMV kernel: (x bf16 [K], weights, scales f16, out f32 [splits, N], K, N,
 // weight blocks per split); grid (N tiles, splits), GEMV_WARPS warps.
@@ -40,7 +43,8 @@ __device__ __forceinline__ void gemv_cta_store(const float (&acc)[GEMV_COLS],
   }
 }
 
-// out[n] = sum over splits of partial[s, n], in split order (deterministic)
+// out[n] = sum over splits of partial[s, n], in split order (deterministic);
+// N here is the length of one split's plane
 static __global__ void splitk_sum_kernel(const float* __restrict__ partial,
                                          float* __restrict__ out, int splits, int N) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;

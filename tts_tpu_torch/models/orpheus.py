@@ -32,7 +32,7 @@ import torch
 from tts_tpu_torch.codecs.snac import SNACDecoder, params_from_jax  # noqa: F401
 from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
 from tts_tpu_torch.models.registry import register_loader
-from tts_tpu_torch.ops.attention import S_CHUNK, flash_decode, quantize_kv
+from tts_tpu_torch.ops.attention import S_CHUNK, arrival_counters, flash_decode, quantize_kv
 from tts_tpu_torch.ops.qmatmul import linear, linear_format, pack_q4_weight, pack_q8_weight
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSResponse, TTSRunner
@@ -197,16 +197,19 @@ def padded_cache_length(cfg: OrpheusConfig) -> int:
 
 def init_kv_cache(cfg: OrpheusConfig, device="cpu") -> dict:
     """Head-major cache [L, Hkv, S, hs], S padded to the kernel's 512 chunk;
-    with cfg.kv_quant int8 k/v plus f32 scales ks/vs [L, Hkv, S].  Entries
-    past a request's position are never read, so it is reused unzeroed."""
+    with cfg.kv_quant int8 k/v plus f32 scales ks/vs [L, Hkv, S]; and the
+    flash-decode arrival counters of this cache, which every layer's launch
+    leaves at zero.  Entries past a request's position are never read, so
+    it is reused unzeroed."""
     shape = (cfg.n_layers, cfg.n_kv_attn_heads, padded_cache_length(cfg), cfg.head_size)
+    counters = arrival_counters(cfg.n_kv_attn_heads, device)
     if cfg.kv_quant:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
                 "ks": torch.zeros(shape[:3], device=device),
-                "vs": torch.zeros(shape[:3], device=device)}
+                "vs": torch.zeros(shape[:3], device=device), "counters": counters}
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device), "counters": counters}
 
 
 def _gqa_attention(q, k, v, mask, cfg: OrpheusConfig):
@@ -261,8 +264,8 @@ def _orpheus_body(params: dict, cfg: OrpheusConfig, tokens: torch.Tensor,
             ck.index_copy_(1, slots, k.transpose(0, 1).to(ck.dtype))
             cv.index_copy_(1, slots, v.transpose(0, 1).to(cv.dtype))
         if T == 1:
-            attn = flash_decode(q[0].float(), ck, cv, positions,
-                                cks if quant else None, cvs if quant else None)
+            attn = flash_decode(q[0].float(), ck, cv, positions, cks if quant else None,
+                                cvs if quant else None, cache["counters"])
         elif quant:
             attn = _gqa_attention(q, ck[:, :T].float() * cks[:, :T, None],
                                   cv[:, :T].float() * cvs[:, :T, None], mask, cfg)
@@ -374,12 +377,16 @@ class OrpheusRunner(TTSRunner):
     architecture = "orpheus"
 
     def __init__(self, cfg: OrpheusConfig, params: dict, tokenizer: BPETokenizer,
-                 snac: SNACDecoder, device="cpu"):
+                 snac: SNACDecoder, device=None):
+        """`device` defaults to the device the params live on (the card,
+        where the loader's default put them)."""
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
         self.snac = snac
-        self.device = torch.device(device)
+        embd = params.get("embd")
+        self.device = torch.device(device if device is not None
+                                   else embd.device if embd is not None else "cuda")
         self._cache = None
         self.load_timings: dict = {}
 

@@ -17,8 +17,10 @@ import every module of the port.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
+import json
 import os
 import subprocess
 import threading
@@ -27,8 +29,23 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+# Launch geometry that a kernel and its wrapper's host-side plan must agree
+# on, kept here only: nvcc gets each entry as -DTTS_<NAME>=<value>, and
+# ops/qmatmul.py and ops/attention.py read it from this dict.
+GEOMETRY = {
+    "GEMV_WARPS": 4,          # the GEMVs: warps that share one CTA's k-range
+    "GEMV_TILE_N": 512,       # the GEMVs: weight columns per CTA
+    "G4_STAGES": 4,           # qgemm_int4: cp.async ring depth (packed blocks)
+    "G4_CTAS_PER_SM_8": 3,    # qgemm_int4: CTAs resident per SM, 8-token tile
+    "G4_CTAS_PER_SM": 2,      # qgemm_int4: the same, 16- to 64-token tiles
+    "G4_WIDE_TOKENS": 16,     # qgemm_int4: M tiles up to this also run 256 columns wide
+    "FD_CHUNK": 64,           # flash_decode: cache positions per CTA
+    "FD_MAX_G": 4,            # flash_decode: query heads per KV head, at most
+    "FD_MAX_S": 32768,        # flash_decode: cache positions, at most
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              *(f"-DTTS_{k}={v}" for k, v in GEOMETRY.items()))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types, in the order of csrc/*.cu's extern "C" API
@@ -39,11 +56,12 @@ SIGNATURES = {
     "qgemm_int8": (_P, _P, _P, _P, _I, _I, _I, _P),
     # x_bf16, wq4, scales, partial, out, K, N, splits, blocks_per_split, stream
     "qgemv_int4": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x_f32, wq4, scales, out, M, K, N, stream
-    "qgemm_int4": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # q, k, v, k_scale, v_scale, pos, part_m, part_l, part_acc, out,
-    # Hq, Hkv, S, kv_int8, scale, stream
-    "flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # x_f32, wq4, scales, partial, out, M, K, N, m_tile, tile_n, splits,
+    # blocks_per_split, stream
+    "qgemm_int4": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, k_scale, v_scale, pos, counters, part_m, part_l, part_acc,
+    # out, Hq, Hkv, S, kv_int8, scale, stream
+    "flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _F, _P),
 }
 
@@ -124,3 +142,42 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device `device_index`."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def device_activity(fn) -> list[dict]:
+    """What one call of fn runs on the card, in launch order, from
+    torch.profiler's CUDA activity: {"name", "grid"} per kernel, copy or
+    memset, "grid" the launch's [x, y, z] (None for copies and memsets).
+
+    fn runs under two profiling sessions and the second is read: on the
+    card, a process's first session has once listed another count of
+    kernels for the same call.  The cause was not established."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"trace_{os.getpid()}_{threading.get_ident()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    acts = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                  key=lambda e: e["ts"])
+    return [{"name": e["name"],
+             "grid": e.get("args", {}).get("grid") if e["cat"] == "kernel" else None}
+            for e in acts]

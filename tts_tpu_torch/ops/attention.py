@@ -13,7 +13,10 @@ import torch
 
 from tts_tpu_torch.ops import _ext
 
-S_CHUNK = 512
+S_CHUNK = 512                                 # the plain version's (and the TPU kernel's) chunk
+KERNEL_CHUNK = _ext.GEOMETRY["FD_CHUNK"]      # positions per CTA of the Hopper kernel
+_MAX_G = _ext.GEOMETRY["FD_MAX_G"]            # query heads per KV head, at most
+_MAX_S = _ext.GEOMETRY["FD_MAX_S"]            # cache positions, at most
 _MASKED = -1e30
 
 
@@ -53,34 +56,51 @@ def flash_decode_plain(q, k_cache, v_cache, pos, k_scale=None, v_scale=None):
     return (acc / l).reshape(Hq, hs)
 
 
-def flash_decode(q, k_cache, v_cache, pos, k_scale=None, v_scale=None):
+def arrival_counters(n_kv_heads: int, device) -> torch.Tensor:
+    """The zeroed int32 [n_kv_heads] arrival counters that `flash_decode`
+    needs on the card: one set per KV cache, allocated with it and so
+    outside any CUDA-graph capture.  Every launch leaves them at zero; the
+    launches that share a set must run in one stream's order."""
+    return torch.zeros(n_kv_heads, dtype=torch.int32, device=device)
+
+
+def flash_decode(q, k_cache, v_cache, pos, k_scale=None, v_scale=None, counters=None):
     """q [Hq, hs] f32, cache [Hkv, S, hs] bf16 (or int8 with f32 scales
     [Hkv, S]), pos an int32 device tensor -> [Hq, hs] f32.  The kernel reads
-    pos on the device and never reads cache rows past it."""
+    pos on the device and never reads cache rows past it.  On the card it
+    needs the cache's `arrival_counters` (the last CTA of each head to
+    finish combines the head's chunks); the CPU ignores them."""
     if not q.is_cuda:
         return flash_decode_plain(q, k_cache, v_cache, pos, k_scale, v_scale)
     Hq, hs = q.shape
     Hkv, S, hs_k = k_cache.shape
     quant = k_scale is not None
     kv_dtype = torch.int8 if quant else torch.bfloat16
-    tensors = [q, k_cache, v_cache, pos] + ([k_scale, v_scale] if quant else [])
+    if counters is None:
+        raise ValueError("flash_decode: on the card it needs the KV cache's arrival "
+                         "counters (arrival_counters(Hkv, device))")
+    tensors = [q, k_cache, v_cache, pos, counters] + ([k_scale, v_scale] if quant else [])
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_decode: all tensors must be on one CUDA device")
-    if hs != 128 or hs_k != 128 or S % S_CHUNK or Hq % Hkv or Hq // Hkv > 4:
-        raise ValueError(f"flash_decode: needs head size 128, S % 512 == 0 and "
-                         f"1-4 query heads per KV head; got q {tuple(q.shape)}, "
+    if (hs != 128 or hs_k != 128 or S % S_CHUNK or S > _MAX_S or Hq % Hkv
+            or Hq // Hkv > _MAX_G):
+        raise ValueError(f"flash_decode: needs head size 128, S % 512 == 0, S <= {_MAX_S} "
+                         f"and 1-{_MAX_G} query heads per KV head; got q {tuple(q.shape)}, "
                          f"cache {tuple(k_cache.shape)}")
     if (q.dtype != torch.float32 or k_cache.dtype != kv_dtype or v_cache.dtype != kv_dtype
             or pos.dtype != torch.int32 or pos.numel() != 1):
         raise ValueError("flash_decode: q f32, cache bf16 (int8 with scales), pos int32 [1]")
+    if counters.dtype != torch.int32 or counters.numel() < Hkv:
+        raise ValueError(f"flash_decode: counters must be int32 [>= {Hkv}]")
     if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
                   or tuple(k_scale.shape) != (Hkv, S) or tuple(v_scale.shape) != (Hkv, S)):
         raise ValueError("flash_decode: k_scale/v_scale must be f32 [Hkv, S]")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode: tensors must be contiguous")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("flash_decode: k/v cache must start 16-byte aligned (vector loads)")
-    G, nchunks = Hq // Hkv, S // S_CHUNK
+    if any(t.data_ptr() % 16 for t in tensors[1:3] + tensors[5:]):
+        raise ValueError("flash_decode: cache and scales must start 16-byte aligned "
+                         "(asynchronous copies)")
+    G, nchunks = Hq // Hkv, S // KERNEL_CHUNK
     part_m = torch.empty((Hkv, nchunks, G), device=q.device)
     part_l = torch.empty((Hkv, nchunks, G), device=q.device)
     part_acc = torch.empty((Hkv, nchunks, G, hs), device=q.device)
@@ -88,8 +108,9 @@ def flash_decode(q, k_cache, v_cache, pos, k_scale=None, v_scale=None):
     err = _ext.load().flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        pos.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), Hq, Hkv, S, int(quant), 1.0 / (hs ** 0.5), _ext.stream_ptr(q))
+        pos.data_ptr(), counters.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), Hq, Hkv, S, int(quant),
+        1.0 / (hs ** 0.5), _ext.stream_ptr(q))
     flash_decode.launches += 1
     _ext.check("flash_decode", err)
     return out

@@ -16,7 +16,8 @@ Four hand-written Hopper kernels replace the TPU's Pallas kernels:
 `_qmm_kernel`) and `qgemv_int4` / `qgemm_int4` (csrc/qmatmul4.cu; were
 `_qmv4_kernel` / `_qmm4_kernel`).  The GEMVs serve M == 1 (every decode
 step) with x rounded to bf16, as the TPU kernels feed bf16 activations to
-the MXU; the GEMMs serve M > 1 (prefill) in f32.  Each wrapper runs its
+the MXU; the GEMMs serve M > 1 (prefill) to f32 accuracy (`qgemm_int4` on
+the tensor cores with x split into two bf16 terms).  Each wrapper runs its
 plain PyTorch version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises.
 
@@ -38,11 +39,11 @@ from tts_tpu_torch.core.quant import Q4_0_BLOCK_BYTES
 from tts_tpu_torch.ops import _ext
 
 QBLOCK = 32
-# the GEMVs: CTAs to aim for (4 per SM of the H100's 132) and the warps that
-# share one CTA's k-range (csrc GEMV_WARPS / GEMV_TILE_N)
-_GEMV_TARGET_CTAS = 4 * 132
-_GEMV_WARPS = 4
-_GEMV_TILE_N = 512
+_GEOMETRY = _ext.GEOMETRY   # the kernels' launch geometry (nvcc gets it as -D defines)
+# the GEMVs aim for 4 CTAs per SM
+_GEMV_CTAS_PER_SM = 4
+# qgemm_int4's M tiles (csrc/qmatmul4.cu qgemm_int4)
+_GEMM_M_TILES = (8, 16, 32, 64)
 # output columns dequantized at a time by the plain versions: the
 # temporaries stay small at the 157k-wide lm_head
 _PLAIN_COLS = 2048
@@ -198,13 +199,37 @@ def _check_cuda(name: str, x, w, scales, packed: bool) -> tuple[int, int]:
     return K, N
 
 
-def _gemv_splits(nblk: int, N: int) -> tuple[int, int]:
-    """(splits, weight blocks per split) of `nblk` 32-row weight blocks:
-    enough CTAs to fill the card, at least one block per warp of a CTA."""
-    n_col = -(-N // _GEMV_TILE_N)
-    splits = max(1, min(-(-_GEMV_TARGET_CTAS // n_col), nblk // _GEMV_WARPS))
+def _gemv_splits(nblk: int, N: int, sms: int) -> tuple[int, int]:
+    """(splits, weight blocks per split) of `nblk` 32-row weight blocks on a
+    card of `sms` SMs: enough CTAs to fill it, at least one block per warp
+    of a CTA."""
+    n_col = -(-N // _GEOMETRY["GEMV_TILE_N"])
+    splits = max(1, min(-(-_GEMV_CTAS_PER_SM * sms // n_col),
+                        nblk // _GEOMETRY["GEMV_WARPS"]))
     per = -(-nblk // splits)
     return -(-nblk // per), per
+
+
+def gemm4_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int, int]:
+    """(m_tile, tile_n, splits, packed blocks per split) of `qgemm_int4` at
+    x [M, K] and packed weights [K/2, N] on a card of `sms` SMs.  The M tile
+    is the smallest of 8-64 tokens that holds M.  K splits into ranges of
+    whole 32-row packed blocks (a packed row pairs x columns k and K/2 + k),
+    as many as one wave of resident CTAs holds (then at least `sms` CTAs,
+    where K allows), each range at least the kernel's ring depth.  The
+    narrow M tiles take 256 weight columns per CTA (each weight row read in
+    256-byte runs) where that still gives 1.5 CTAs per SM, else 128."""
+    m_tile = next((t for t in _GEMM_M_TILES if M <= t), _GEMM_M_TILES[-1])
+    nblk = K // (2 * QBLOCK)
+    per_sm = _GEOMETRY["G4_CTAS_PER_SM_8" if m_tile == 8 else "G4_CTAS_PER_SM"]
+    tiles_n = (256, 128) if m_tile <= _GEOMETRY["G4_WIDE_TOKENS"] else (128,)
+    for tile_n in tiles_n:
+        ctas = -(-N // tile_n) * -(-M // m_tile)
+        per = -(-nblk // max(1, min(per_sm * sms // ctas, nblk // _GEOMETRY["G4_STAGES"])))
+        splits = -(-nblk // per)
+        if 2 * ctas * splits >= 3 * sms:
+            break
+    return m_tile, tile_n, splits, per
 
 
 def _gemv(name: str, x, w, scales, packed: bool) -> torch.Tensor:
@@ -213,7 +238,7 @@ def _gemv(name: str, x, w, scales, packed: bool) -> torch.Tensor:
         raise ValueError(f"{name}: M must be 1, got {x.shape[0]}")
     xb = x.to(torch.bfloat16).contiguous()
     out = torch.empty((1, N), device=x.device, dtype=torch.float32)
-    splits, per = _gemv_splits(w.shape[0] // QBLOCK, N)
+    splits, per = _gemv_splits(w.shape[0] // QBLOCK, N, _ext.sm_count(x.device.index))
     partial = (torch.empty((splits, N), device=x.device, dtype=torch.float32)
                if splits > 1 else out)
     err = getattr(_ext.load(), name)(xb.data_ptr(), w.data_ptr(), scales.data_ptr(),
@@ -227,9 +252,19 @@ def _gemm(name: str, x, w, scales, packed: bool) -> torch.Tensor:
     K, N = _check_cuda(name, x, w, scales, packed)
     M = x.shape[0]
     xf = x.float().contiguous()
+    if xf.data_ptr() % 16:
+        raise ValueError(f"{name}: x must start 16-byte aligned (asynchronous copies)")
     out = torch.empty((M, N), device=x.device, dtype=torch.float32)
-    err = getattr(_ext.load(), name)(xf.data_ptr(), w.data_ptr(), scales.data_ptr(),
-                                     out.data_ptr(), M, K, N, _ext.stream_ptr(x))
+    lib, stream = _ext.load(), _ext.stream_ptr(x)
+    if packed:
+        m_tile, tile_n, splits, per = gemm4_plan(M, K, N, _ext.sm_count(x.device.index))
+        partial = (torch.empty((splits, M, N), device=x.device, dtype=torch.float32)
+                   if splits > 1 else out)
+        err = lib.qgemm_int4(xf.data_ptr(), w.data_ptr(), scales.data_ptr(), partial.data_ptr(),
+                             out.data_ptr(), M, K, N, m_tile, tile_n, splits, per, stream)
+    else:
+        err = lib.qgemm_int8(xf.data_ptr(), w.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                             M, K, N, stream)
     _ext.check(name, err)
     return out
 
