@@ -14,13 +14,16 @@ Phases (any failure exits non-zero, before the final line):
      lengths of phase 5; flash-decode at the edges of its chunks), with
      device times (CUDA graphs replayed plain, kernel, [library, library,]
      kernel, plain), achieved GB/s, and each call's bound: the larger of its
-     bytes over 3.35 TB/s and its operations over 989 TFLOP/s.  The library
-     call, where one computes the same function: scaled_dot_product_attention
-     for bf16 flash-decode, torch._weight_int4pack_mm for the int4 products.
-     qgemm_int4 also shows its CTAs and K splits as torch.profiler recorded
-     its launch (held to the plan; at least one CTA per SM on the path) and
-     gives identical bits twice; flash_decode must be one device kernel per
-     call (torch.profiler)
+     bytes over 3.35 TB/s and its operations over 989 TFLOP/s.  The GEMVs
+     run on bf16 x, as the decode layers pass it, and the lm_head also on
+     f32 x, as the head passes it.  The library call, where one computes
+     the same function: scaled_dot_product_attention for bf16 flash-decode,
+     torch._weight_int4pack_mm for the int4 products.  The GEMVs and
+     qgemm_int4 show their CTAs and K splits as torch.profiler recorded
+     the launch (held to the plan: qgemm_int4 at least one CTA per SM on
+     the path, a split GEMV at most one), their device kernels per call
+     (the GEMVs: exactly one), and give identical bits twice; flash_decode
+     must be one device kernel per call
   4. model: tiny Q8_0 and Q4_0 models' CUDA forwards checked against the
      port's CPU (plain) forwards, then seeded random full-width Orpheus-3B
      GGUFs (28 layers, F16 embedding, full-width SNAC), Q8_0 and Q4_0,
@@ -278,7 +281,7 @@ def kernels():
         checking that it computes the same product (bf16 x, scales, out);
         returns its rel err against the plain version."""
         lib_ws = [int4_library_weight(*w) for w in ws]
-        xb = x.bfloat16()
+        xb = x.bfloat16()                   # the GEMV rows' x already is bf16
 
         def library(j):
             w, sz = lib_ws[j % len(lib_ws)]
@@ -290,7 +293,22 @@ def kernels():
               f"{INT4_LIBRARY_TOL}: the yardstick does not compute the same product")
         return lr
 
-    # M = 1: decode steps and the prefill's lm_head; M > 1: the rest of prefill
+    def launch_grid(name, kernel, label, call, want_grid, want_kernels):
+        """The grid of `kernel` (its device name) as torch.profiler recorded
+        the launch, held to the plan; the call's device kernels counted;
+        identical bits twice."""
+        acts = _ext.device_activity(call)
+        grids = [a["grid"] for a in acts if kernel in a["name"]]
+        check(len(grids) == 1 and grids[0] is not None, f"{name} {label}: the profiler saw {acts}")
+        check(grids[0] == want_grid, f"{name} {label}: launched grid {grids[0]}, planned "
+              f"{want_grid}")
+        check(len(acts) == want_kernels, f"{name} {label}: {len(acts)} device kernels per call "
+              f"({[a['name'] for a in acts]}), not {want_kernels}")
+        check(torch.equal(call(), call()), f"{name} {label}: two calls differ")
+        return {"ctas": math.prod(grids[0]), "device_kernels": len(acts)}
+
+    # M = 1: decode steps (bf16 x, as the layers pass it) and the lm_head
+    # (also f32 x, as _head_logits passes it); M > 1: the rest of prefill
     gemm_ms = sorted(set(GEMM_M) | set(prompt_lengths()))
     for bits, fn, plain, tpu_line, ms_list, iters in (
             (8, tq.qgemv_int8, tq.qgemv_int8_plain, "tts_tpu/ops/qmatmul.py:144", (1,), 20),
@@ -298,40 +316,48 @@ def kernels():
             (8, tq.qgemm_int8, tq.qgemm_int8_plain, "tts_tpu/ops/qmatmul.py:134", gemm_ms, 10),
             (4, tq.qgemm_int4, tq.qgemm_int4_plain, "tts_tpu/ops/qmatmul.py:350", gemm_ms, 10)):
         rows = []
-        tol = GEMV_TOL if ms_list == (1,) else GEMM_TOL
+        gemv = ms_list == (1,)
+        tol = GEMV_TOL if gemv else GEMM_TOL
         for i, (name, (K, N)) in enumerate(LINEAR_SHAPES.items()):
-            ws = rotating_weights(K, N, dev, 100 * (ms_list != (1,)) + i + bits,
-                                  int4=bits == 4)
-            for M in ms_list:
-                x = torch.randn((M, K), device=dev)
+            ws = rotating_weights(K, N, dev, 100 * (not gemv) + i + bits, int4=bits == 4)
+            runs = [(M, torch.float32) for M in ms_list] if not gemv else (
+                [(1, torch.bfloat16)] + [(1, torch.float32)] * (name == "lm_head"))
+            for M, xdtype in runs:
+                x = torch.randn((M, K), device=dev).to(xdtype)
+                label = f"{name} M={M}" + (f" x={str(xdtype)[6:]}" if gemv else "")
                 want = plain(x, *ws[0])
                 a, r = rel_err(fn(x, *ws[0]), want)
                 fns = {"plain": lambda j: plain(x, *ws[j % len(ws)]),
                        "kernel": lambda j: fn(x, *ws[j % len(ws)])}
-                lr = int4_library(fns, x, ws, want, f"{name} M={M}") if bits == 4 else None
+                lr = int4_library(fns, x, ws, want, label) if bits == 4 else None
                 launch = {}
-                if fn is tq.qgemm_int4:
-                    # the GEMM's grid (column tiles, M tiles, K splits) as
-                    # torch.profiler recorded its launch, held to the plan
-                    acts = _ext.device_activity(lambda: fn(x, *ws[0]))
-                    grids = [a["grid"] for a in acts if "qgemm_int4" in a["name"]]
-                    check(len(grids) == 1 and grids[0] is not None,
-                          f"qgemm_int4 {name} M={M}: the profiler saw {acts}")
+                if gemv:
+                    # one device kernel per call (no cast, no split-K pass),
+                    # its grid (splits, column tiles) as planned: where the
+                    # column tiles leave SMs free, one wave of at most one
+                    # CTA per SM
+                    tile_n, splits, _ = tq.gemv_plan(K, N, sms, bits == 4)
+                    tiles = -(-N // tile_n)
+                    launch = launch_grid(fn.__name__, "qgemv_kernel", label,
+                                         lambda: fn(x, *ws[0]), [splits, tiles, 1], 1)
+                    launch["splits"] = splits
+                    check(tiles >= sms or launch["ctas"] <= sms, f"{fn.__name__} {label}: "
+                          f"{launch['ctas']} CTAs in {splits} splits > {sms} SMs")
+                elif fn is tq.qgemm_int4:
+                    # the GEMM's grid (column tiles, M tiles, K splits), and
+                    # the split-K pass after it when K splits
                     m_tile, tile_n, splits, _ = tq.gemm4_plan(M, K, N, sms)
-                    check(grids[0] == [-(-N // tile_n), -(-M // m_tile), splits],
-                          f"qgemm_int4 {name} M={M}: launched grid {grids[0]}, planned "
-                          f"{m_tile} tokens x {tile_n} columns x {splits} splits")
-                    launch = {"ctas": math.prod(grids[0]), "splits": grids[0][2],
-                              "device_kernels": len(acts)}
+                    launch = launch_grid(fn.__name__, "qgemm_int4", label,
+                                         lambda: fn(x, *ws[0]),
+                                         [-(-N // tile_n), -(-M // m_tile), splits],
+                                         1 + (splits > 1))
+                    launch["splits"] = splits
                     check(name == "lm_head" or launch["ctas"] >= sms,
-                          f"qgemm_int4 {name} M={M}: {launch['ctas']} CTAs < {sms} SMs")
-                    check(torch.equal(fn(x, *ws[0]), fn(x, *ws[0])),
-                          f"qgemm_int4 {name} M={M}: two calls differ")
+                          f"qgemm_int4 {label}: {launch['ctas']} CTAs < {sms} SMs")
                 t = timed(fns, {"plain": 3, "kernel": iters, "library": iters})
                 wbytes = K * N * bits // 8 + K // 32 * N * 2
-                xbytes = 2 if M == 1 else 4
-                rows.append(row(f"{name} M={M} K={K} N={N}", a, r, t["kernel"], t["plain"],
-                                wbytes + M * K * xbytes + M * N * 4, 2 * M * K * N,
+                rows.append(row(f"{label} K={K} N={N}", a, r, t["kernel"], t["plain"],
+                                wbytes + M * K * x.element_size() + M * N * 4, 2 * M * K * N,
                                 t.get("library"), lr, **launch))
                 tflops = 2 * M * K * N / (t["kernel"] * 1e-3) / 1e12
                 gbs = wbytes / (t["kernel"] * 1e-3) / 1e9
@@ -339,13 +365,13 @@ def kernels():
                 lib_note = f"  (library rel_err {lr:.1e})" if lr is not None else ""
                 grid = (f"  {launch['ctas']} CTAs ({launch['splits']} splits, "
                         f"{launch['device_kernels']} device kernels)" if launch else "")
-                print(f"{fn.__name__} {name:8s} M={M:2d} K={K:5d} N={N:6d}  rel_err {r:.2e} "
+                print(f"{fn.__name__} {label:17s} K={K:5d} N={N:6d}  rel_err {r:.2e} "
                       f"(tol {tol:.0e})  kernel {t['kernel'] * 1e3:8.1f} us  plain "
                       f"{t['plain'] * 1e3:9.1f} us{lib}  bound "
                       f"{rows[-1]['bound_ms'] * 1e3:6.1f} us  {tflops:5.2f} TFLOP/s  "
                       f"{gbs:7.1f} GB/s = {gbs * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s"
                       f"{grid}{lib_note}")
-                check(r < tol, f"{fn.__name__} {name} M={M}: rel err {r} >= {tol}")
+                check(r < tol, f"{fn.__name__} {label}: rel err {r} >= {tol}")
             del ws
         record(fn.__name__, f"tts_tpu_torch/csrc/qmatmul{'4' if bits == 4 else ''}.cu",
                tpu_line, rows)

@@ -70,17 +70,85 @@ def rel_err(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
-def test_qgemv_int8_matches_plain(cuda, K, N):
+def test_qgemv_int8_matches_plain(cuda, K, N, xdtype):
     """Both sum the same exact bf16(x) * int8 products in f32, in another
-    order (split-K, per-block scaling): relative error bound 1e-4."""
+    order (split-K, per-block scaling): relative error bound 1e-4.  x comes
+    in bf16, as the decode layers pass it, or f32, as the head passes it
+    (the kernel rounds it to bf16)."""
     wq, sc = rand_q8(K, N, cuda, K + N)
-    x = torch.randn((1, K), device=cuda)
+    x = torch.randn((1, K), device=cuda).to(xdtype)
     n = tq.qgemv_int8.launches
     got = tq.qgemv_int8(x, wq, sc)
     torch.cuda.synchronize()
     assert tq.qgemv_int8.launches == n + 1
     assert rel_err(got, tq.qgemv_int8_plain(x, wq, sc)) < 1e-4
+
+
+def rand_gemv(packed, K, N, device, seed):
+    return rand_q4(K, N, device, seed) if packed else rand_q8(K, N, device, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
+def test_qgemv_is_one_kernel_with_the_planned_grid(cuda, K, N, packed, xdtype):
+    """One device kernel per call, with no cast and no split-K pass, for
+    bf16 and f32 x; its grid is gemv_plan's (splits, column tiles), at
+    most one CTA per SM where the column tiles leave SMs free."""
+    w, sc = rand_gemv(packed, K, N, cuda, 3)
+    x = torch.randn((1, K), device=cuda).to(xdtype)
+    fn = tq.qgemv_int4 if packed else tq.qgemv_int8
+    tile_n, splits, _ = tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)
+    acts = _ext.device_activity(lambda: fn(x, w, sc))
+    assert len(acts) == 1 and "qgemv_kernel" in acts[0]["name"], acts
+    assert acts[0]["grid"] == [splits, -(-N // tile_n), 1], acts
+    sms, tiles = _ext.sm_count(cuda.index or 0), -(-N // tile_n)
+    assert tiles >= sms or tiles * splits <= sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("K,N", [ORPHEUS_SHAPES[1], ORPHEUS_SHAPES[3]])
+def test_qgemv_is_deterministic(cuda, K, N, packed):
+    """The splits add in split order inside the cluster (no atomics): two
+    calls give identical bits, at o and down (the most splits)."""
+    assert tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)[1] > 1
+    w, sc = rand_gemv(packed, K, N, cuda, 4)
+    x = torch.randn((1, K), device=cuda).bfloat16()
+    fn = tq.qgemv_int4 if packed else tq.qgemv_int8
+    a, b = fn(x, w, sc), fn(x, w, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+def test_qgemv_on_two_streams(cuda, packed):
+    """The cross-split sum keeps no global state: calls on two streams at
+    once (each stream first sleeps on the device while the host queues all
+    of them) each match the plain version."""
+    K, N = ORPHEUS_SHAPES[3]
+    fn = tq.qgemv_int4 if packed else tq.qgemv_int8
+    plain = tq.qgemv_int4_plain if packed else tq.qgemv_int8_plain
+    runs = []
+    for seed in (5, 6):
+        w, sc = rand_gemv(packed, K, N, cuda, seed)
+        x = torch.randn((1, K), device=cuda).bfloat16()
+        runs.append((torch.cuda.Stream(), (x, w, sc), plain(x, w, sc), []))
+    torch.cuda.synchronize()
+    for stream, *_ in runs:
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(100_000_000)             # ~50 ms of device time
+    for _ in range(50):
+        for stream, args, _, outs in runs:
+            with torch.cuda.stream(stream):
+                outs.append(fn(*args))
+    torch.cuda.synchronize()
+    for _, _, want, outs in runs:
+        assert max(rel_err(o, want) for o in outs) < 1e-4
 
 
 @pytest.mark.cuda
@@ -98,12 +166,14 @@ def test_qgemm_int8_matches_plain(cuda, M, K, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
-def test_qgemv_int4_matches_plain(cuda, K, N):
+def test_qgemv_int4_matches_plain(cuda, K, N, xdtype):
     """Both sum the same exact bf16(x) * int4 products in f32, in another
-    order (split-K, two nibble planes, per-block scaling): bound 1e-4."""
+    order (split-K, two nibble planes, per-block scaling): bound 1e-4; x in
+    bf16 or f32, as for qgemv_int8."""
     wq4, sc = rand_q4(K, N, cuda, K + N)
-    x = torch.randn((1, K), device=cuda)
+    x = torch.randn((1, K), device=cuda).to(xdtype)
     n = tq.qgemv_int4.launches
     got = tq.qgemv_int4(x, wq4, sc)
     torch.cuda.synchronize()
@@ -259,6 +329,8 @@ def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
         tq.qgemv_int4(x[:, :160], wq4[:80].contiguous(), sc4[:5].contiguous())  # K % 64
     with pytest.raises(ValueError):
         tq.qgemm_int4(x.repeat(2, 1), wq4, sc4.float())                # scales not f16
+    with pytest.raises(ValueError):
+        tq.qgemv_int4(torch.empty(K + 1, device=cuda)[1:][None], wq4, sc4)  # x misaligned
     assert tq.qgemv_int4.launches == n
     q, k, v, _, _ = rand_attention(5, False, cuda)
     counters = ta.arrival_counters(HKV, cuda)

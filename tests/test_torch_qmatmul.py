@@ -193,18 +193,44 @@ def test_cpu_wrappers_launch_nothing(rng):
 ORPHEUS_GEMMS = {"qkv": (3072, 5120), "o": (3072, 3072), "gateup": (3072, 16384),
                  "down": (8192, 3072)}
 SMS = 132      # streaming multiprocessors of an H100 SXM
+# Orpheus-3B's linears at M == 1 (K, N): the four above and the padded lm_head
+ORPHEUS_GEMVS = {**ORPHEUS_GEMMS, "lm_head": (3072, 157696)}
+
+
+def gemv_smem_bytes(packed: bool, tile_n: int, per: int, splits: int) -> int:
+    """Shared memory of one GEMV CTA (csrc/qmatmul.cuh GemvSmem): each
+    warp's ring of 32-row blocks of its 128 columns with their scales, the
+    CTA's x slice in bf16, and the [splits][tile_n] f32 sums its cluster
+    pushes."""
+    g = _ext.GEOMETRY
+    planes = 2 if packed else 1
+    slot = 32 * 128 + planes * 128 * 2
+    pushed = splits * tile_n * 4 if splits > 1 else 0
+    return g["GEMV_WARPS"] * g["GEMV_RING"] * slot + per * 32 * planes * 2 + pushed
 
 
 def test_kernel_geometry_is_one_source():
     """The launch geometry that the plans read is what nvcc compiles the
     kernels with: every entry of _ext.GEOMETRY is a -D define of the build,
-    and the split plan keeps each split at least the ring's depth."""
+    the split plan keeps each split at least the ring's depth, and at every
+    Orpheus-3B shape GEMV_CTAS_PER_SM GEMV CTAs fit the H100's 228 KB of
+    shared memory per SM, with the 1 KB the card reserves per CTA."""
     flags = set(_ext.NVCC_FLAGS)
     assert all(f"-DTTS_{k}={v}" in flags for k, v in _ext.GEOMETRY.items())
     stages = _ext.GEOMETRY["G4_STAGES"]
     for K in (3072, 8192):
         _, _, splits, per = tq.gemm4_plan(8, K, 3072, SMS)
         assert splits > 1 and per >= stages
+    g = _ext.GEOMETRY
+    for packed in (False, True):
+        for K, N in ORPHEUS_GEMVS.values():
+            tile_n, splits, per = tq.gemv_plan(K, N, SMS, packed)
+            smem = gemv_smem_bytes(packed, tile_n, per, splits)
+            assert g["GEMV_CTAS_PER_SM"] * (smem + 1024) <= 228 * 1024, (K, N, packed, smem)
+        for K in (3072, 8192, 65536):
+            _, splits, per = tq.gemv_plan(K, 3072, SMS, packed)
+            assert splits <= g["GEMV_MAX_CLUSTER"]
+            assert per * (64 if packed else 32) <= g["GEMV_MAX_X"]
 
 
 def split_blocks(M, K, N):
@@ -304,3 +330,109 @@ def test_qgemm_int4_arithmetic_matches_plain(M, wide):
 
     assert rel(emulate_qgemm_int4(*args)) < 1e-4
     assert rel(emulate_qgemm_int4(*args, split_x=False)) > 1e-4
+
+
+def gemv_split_blocks(K, N, packed, sms=SMS):
+    """The weight blocks (packed blocks for int4) each split of
+    gemv_plan(K, N) takes, in order."""
+    _, splits, per = tq.gemv_plan(K, N, sms, packed)
+    nblk = K // (64 if packed else 32)
+    return [list(range(s * per, min((s + 1) * per, nblk))) for s in range(splits)]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("name", list(ORPHEUS_GEMVS))
+def test_gemv_plan_fills_the_card_at_orpheus_shapes(name, packed):
+    """At every Orpheus-3B linear the GEMV launches one wave with at most
+    one CTA per SM and no SM idle that a power-of-two split could have
+    used: qkv 80 CTAs, o and down 96, gateup 128.  The lm_head's column
+    tiles alone fill the card: it splits only to keep a CTA at 48 weight
+    blocks at most (int8: two splits; int4: none)."""
+    K, N = ORPHEUS_GEMVS[name]
+    g = _ext.GEOMETRY
+    tile_n, splits, per = tq.gemv_plan(K, N, SMS, packed)
+    assert tile_n == g["GEMV_TILE_N"]
+    tiles = -(-N // tile_n)
+    assert splits & (splits - 1) == 0 and splits <= g["GEMV_MAX_CLUSTER"]
+    if tiles < SMS:
+        assert tiles * splits <= SMS < 2 * tiles * splits
+    else:
+        assert per <= 48 and splits == (1 if packed else 2)
+    assert tiles * splits == {"qkv": 80, "o": 96, "gateup": 128, "down": 96,
+                              "lm_head": 616 if packed else 1232}[name]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_gemv_plan_covers_every_block_once(sms, packed):
+    """Ragged K and N (K % 64 == 0, N % 16 == 0): the splits take every
+    weight block exactly once, in order, none is empty; the column tiles
+    cover N; each CTA's x slice fits the kernel's bound."""
+    g = _ext.GEOMETRY
+    for K in (64, 192, 3072, 8192, 8256, 40960):
+        for N in (16, 144, 3088, 157696):
+            tile_n, splits, per = tq.gemv_plan(K, N, sms, packed)
+            parts = gemv_split_blocks(K, N, packed, sms)
+            assert sum(parts, []) == list(range(K // (64 if packed else 32))) and all(parts)
+            assert tile_n == g["GEMV_TILE_N"]
+            assert len(parts) == splits <= g["GEMV_MAX_CLUSTER"]
+            assert per * (64 if packed else 32) <= g["GEMV_MAX_X"]
+
+
+def emulate_qgemv(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, packed: bool,
+                  sms: int = SMS) -> torch.Tensor:
+    """The Hopper GEMV's arithmetic on the CPU, in its order: x rounded to
+    bf16; per weight block (and nibble plane) the exact products summed in
+    f32, then the block's f16 scale on that sum, low plane first; each warp
+    sums its blocks in order (a warp takes 128 columns: a CTA of CW warps
+    side by side gives warp w the range's blocks w / CW, w / CW +
+    GEMV_WARPS / CW, ...), a column's warps are added in warp order, and
+    the cluster adds its splits in order."""
+    kw = _ext.GEOMETRY["GEMV_WARPS"] * 128 // _ext.GEOMETRY["GEMV_TILE_N"]   # warps per column
+    xb = x.to(torch.bfloat16).float()[0]
+    K, N = xb.shape[0], w.shape[1]
+    if packed:
+        planes = int4_planes_as_the_kernel_unpacks(w)
+        rows, half = K // 2, K // 2
+    else:
+        planes, rows, half = [w.float()], K, 0
+    nblk = rows // 32
+    out = torch.zeros(N)
+    for blocks in gemv_split_blocks(K, N, packed, sms):
+        cta = torch.zeros(N)
+        for k in range(kw):
+            acc = torch.zeros(N)
+            for b in blocks[k::kw]:
+                for p, wp in enumerate(planes):
+                    xs = xb[p * half + b * 32: p * half + (b + 1) * 32]
+                    acc = acc + (xs @ wp[b * 32:(b + 1) * 32]) * scales[b + p * nblk].float()
+            cta = cta + acc
+        out = out + cta
+    return out[None]
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+def test_qgemv_arithmetic_matches_plain_and_jax(packed, xdtype, sms):
+    """The kernel's arithmetic (emulated) within 1e-4 of the plain version
+    (the card test's bound) and within the plain version's own tolerance
+    of tts_tpu's quantized_matmul / quantized_matmul_q4 at M = 1.  K = 1024
+    splits 8 ways at 132 SMs (one block per warp at most); at 1 SM it does
+    not split and each warp sums 4 (int4) or 8 (int8) blocks."""
+    K, N = 1024, 256
+    rng = np.random.default_rng(7 + packed + 10 * sms)
+    w, sc = make_q4(rng, K, N) if packed else make_q8(rng, K, N)
+    x = rng.standard_normal((1, K)).astype(np.float32)
+    xt = torch.from_numpy(x).to(xdtype)
+    args = (xt, torch.from_numpy(w), torch.from_numpy(sc.astype(np.float16)))
+    _, splits, _ = tq.gemv_plan(K, N, sms, packed)
+    assert (splits > 1) == (sms > 1)
+    got = emulate_qgemv(*args, packed=packed, sms=sms)
+    want = (tq.qgemv_int4_plain if packed else tq.qgemv_int8_plain)(*args)
+    assert ((got - want).abs().max() / want.abs().max()).item() < 1e-4
+    xj = np.asarray(jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16).astype(jnp.float32))
+    sj = jnp.asarray(sc.astype(np.float16).view(np.uint16))
+    jax_fn = jq.quantized_matmul_q4 if packed else jq.quantized_matmul
+    ref = np.asarray(jax_fn(jnp.asarray(xj), jnp.asarray(w), sj))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())

@@ -20,21 +20,6 @@ __device__ __forceinline__ void unpack_i8x16(const int4 v, float f[16]) {
   }
 }
 
-// 16 packed int4 bytes (one 16-byte load) -> the 16 signed low nibbles and
-// the 16 signed high nibbles.  Shifting a nibble to the top of the word and
-// back with an arithmetic shift sign-extends it.
-__device__ __forceinline__ void unpack_i4x16(const int4 v, float lo[16], float hi[16]) {
-  const int w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      lo[4 * i + j] = (float)((int)((unsigned)w[i] << (28 - 8 * j)) >> 28);
-      hi[4 * i + j] = (float)((int)((unsigned)w[i] << (24 - 8 * j)) >> 28);
-    }
-  }
-}
-
 // 4 signed bytes (one 32-bit word) -> 4 floats.
 __device__ __forceinline__ void unpack_i8x4(const int w, float f[4]) {
 #pragma unroll

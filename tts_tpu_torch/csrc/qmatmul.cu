@@ -2,15 +2,27 @@
 // scale per 32-row block and column, scales [K/32, N]; f32 out [M, N].
 //
 // qgemv_int8 replaces tts_tpu/ops/qmatmul.py::_qmv_kernel (M == 1, every
-// decode step).  Bound: device-memory bytes.  At M = 1 each weight byte is
-// used for one multiply-add, far below the ~295 operations per byte at
-// which the H100 stops waiting on memory, so the design only has to keep
-// enough bytes in flight: a thread owns 16 consecutive columns and reads
-// them as one 16-byte load per row (a warp reads 512 contiguous bytes), and
-// split-K spreads the narrow shapes (N = 3072) over all 132 SMs.  Partial sums
-// go to a [splits, N] f32 scratch and a second pass adds them in a fixed
-// order, so results do not change from run to run (no atomics).  x is
-// rounded to bf16 by the wrapper, as the TPU kernel does.
+// decode step and the prefill's lm_head).  Bound: device-memory bytes,
+// K * N weight bytes + K/32 * N * 2 scale bytes over 3.35 TB/s.  At M = 1
+// each weight byte feeds one multiply-add, far below the ~295 operations
+// per byte at which the H100 stops waiting on memory: tensor cores buy
+// nothing, and the design is about bytes in flight and fixed cost.  It is
+// qmatmul.cuh's qgemv_kernel, shared with qgemv_int4.  What it does about
+// the three causes that held the first GEMV at a ~15 us floor:
+//   - too few CTAs, too little in flight: a CTA takes 256 columns (two
+//     warps side by side, so each weight row is read in 256-byte runs)
+//     and the host plan (ops/qmatmul.py::gemv_plan) splits K so that one
+//     wave covers the card, at most one CTA per SM; each warp streams its
+//     own 32-row blocks, two in flight through a cp.async ring, and adds
+//     each quarter block as it lands;
+//   - dependent loads: the CTA's slice of x is staged in shared memory
+//     once, while the first blocks fly, and a block's scales are copied
+//     with its rows;
+//   - two kernels per call: the splits of a column tile are one
+//     thread-block cluster and add their sums through distributed shared
+//     memory in split order (identical bits every run, no global state),
+//     and x is read as bf16 or f32 and rounded to bf16 as it is staged,
+//     so a call is one launch with no cast kernel.
 //
 // qgemm_int8 replaces ::_qmm_kernel (M > 1: prefill).  A shared-memory tiled
 // GEMM on the CUDA cores: a 32-row k-tile is exactly one scale block, so the
@@ -23,50 +35,6 @@
 namespace {
 
 using namespace tts;
-
-// ---- M == 1 ----------------------------------------------------------------
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-qgemv_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wq,
-                  const __half* __restrict__ scales, float* __restrict__ out,
-                  int K, int N, int blocks_per_split) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * GEMV_TILE_N + lane * GEMV_COLS;
-  const int nblk = K / QBLOCK;
-  const int b_begin = blockIdx.y * blocks_per_split;
-  const int b_end = min(b_begin + blocks_per_split, nblk);
-
-  float acc[GEMV_COLS];
-#pragma unroll
-  for (int j = 0; j < GEMV_COLS; ++j) acc[j] = 0.f;
-
-  if (n0 < N) {  // N % 16 == 0: a thread's 16 columns are all in or all out
-    for (int b = b_begin + warp; b < b_end; b += GEMV_WARPS) {
-      const int8_t* wp = wq + (size_t)b * QBLOCK * N + n0;
-      const __nv_bfloat16* xp = x + b * QBLOCK;
-      float part[GEMV_COLS];
-#pragma unroll
-      for (int j = 0; j < GEMV_COLS; ++j) part[j] = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < QBLOCK; ++r) {
-        const int4 v = __ldg(reinterpret_cast<const int4*>(wp + (size_t)r * N));
-        const float xr = __bfloat162float(xp[r]);
-        float w[GEMV_COLS];
-        unpack_i8x16(v, w);
-#pragma unroll
-        for (int j = 0; j < GEMV_COLS; ++j) part[j] = fmaf(xr, w[j], part[j]);
-      }
-      // the block's scales apply to its partial sums, as in the TPU kernel
-      const uint4* sp = reinterpret_cast<const uint4*>(scales + (size_t)b * N + n0);
-      float s[GEMV_COLS];
-      unpack_f16x8(__ldg(sp), s);
-      unpack_f16x8(__ldg(sp + 1), s + 8);
-#pragma unroll
-      for (int j = 0; j < GEMV_COLS; ++j) acc[j] = fmaf(part[j], s[j], acc[j]);
-    }
-  }
-  gemv_cta_store(acc, out, N);
-}
 
 // ---- M > 1 -----------------------------------------------------------------
 template <int BM>
@@ -114,12 +82,11 @@ qgemm_int8_kernel(const float* __restrict__ x, const int8_t* __restrict__ wq,
 
 }  // namespace
 
-// partial: [splits, N] f32 scratch, unused when splits == 1
-extern "C" int qgemv_int8(const void* x, const void* wq, const void* scales, void* partial,
-                          void* out, int K, int N, int splits, int blocks_per_split,
-                          void* stream) {
-  return tts::launch_gemv(qgemv_int8_kernel, x, wq, scales, partial, out, K, N, splits,
-                          blocks_per_split, stream);
+// x [K] bf16 (x_f32: f32); K split into `splits` ranges of `per` 32-row blocks
+// (ops/qmatmul.py::gemv_plan), the splits of a column tile one cluster
+extern "C" int qgemv_int8(const void* x, int x_f32, const void* wq, const void* scales, void* out,
+                          int K, int N, int splits, int per, void* stream) {
+  return tts::launch_qgemv<false>(x, x_f32, wq, scales, out, K, N, splits, per, stream);
 }
 
 extern "C" int qgemm_int8(const void* x, const void* wq, const void* scales, void* out,

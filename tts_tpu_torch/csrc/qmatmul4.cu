@@ -6,17 +6,30 @@
 // block b in its low nibbles and scale block b + K/64 in its high ones.
 //
 // qgemv_int4 replaces tts_tpu/ops/qmatmul.py::_qmv4_kernel (M == 1, every
-// decode step).  Bound: device-memory bytes, K/2 * N + K/32 * N * 2 per
-// call: half the int8 weight bytes, the same scale bytes.  The design is
-// qgemv_int8's (csrc/qmatmul.cu): a thread owns 16 consecutive columns, and
-// one 16-byte load of a packed row gives it 16 columns x two rows (i and
-// i + K/2), summed against x[i] and x[i + K/2] into two partial sums per
-// column.  At the end of each 32-row packed block the two partial sums take
-// their block's scales, the same per-block order as the TPU kernel.  Split-K
-// over the packed blocks with the deterministic second pass fills the card
-// at the narrow shapes.  x is rounded to bf16 by the wrapper, as the TPU
-// kernel feeds bf16 activations.  The TPU kernel's block-diagonal expansion
-// of x feeds its MXU and has no purpose here.
+// decode step and the prefill's lm_head).  Bound: device-memory bytes,
+// K/2 * N weight bytes + K/32 * N * 2 scale bytes over 3.35 TB/s: half the
+// int8 weight bytes, the same scale bytes; about one multiply-add per
+// weight, so tensor cores buy nothing.  It is qgemv_int8's kernel
+// (qmatmul.cuh's qgemv_kernel) on the packed layout: a lane's 32-bit word
+// of a packed row is 4 columns x rows i and i + K/2, unpacked to exact
+// floats (PRMT + FADD), summed against x[i] and x[i + K/2] into one
+// partial sum per plane, and at the end of each 32-row packed block each
+// plane's f16 scale multiplies its sum (low plane first), the TPU
+// kernel's per-block order.  What it does about the three causes that
+// held the first GEMV at a ~15 us floor (72 CTAs at `o`):
+//   - too few CTAs, too little in flight: 256-column CTAs (256-byte runs
+//     of each packed row), K split by gemv_plan so one wave covers the
+//     card at most one CTA per SM; each warp keeps two packed blocks
+//     (2 x 4.5 KB) in flight through a cp.async ring and adds each
+//     quarter block as it lands;
+//   - dependent loads: both planes' slices of x are staged in shared
+//     memory once, while the first blocks fly; both planes' scales are
+//     copied with their block;
+//   - two kernels per call: the splits add in a thread-block cluster
+//     through distributed shared memory, in split order, and f32 or bf16
+//     x is rounded to bf16 as it is staged: one launch per call.
+// The TPU kernel's block-diagonal expansion of x feeds its MXU and has no
+// purpose here.
 //
 // qgemm_int4 replaces ::_qmm4_kernel (M > 1: prefill; later speculative
 // verify at M = 8 and Dia's batch-2 steps).  Bound: the weight bytes over
@@ -47,60 +60,6 @@
 namespace {
 
 using namespace tts;
-
-// ---- M == 1 ----------------------------------------------------------------
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-qgemv_int4_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wq4,
-                  const __half* __restrict__ scales, float* __restrict__ out,
-                  int K, int N, int blocks_per_split) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * GEMV_TILE_N + lane * GEMV_COLS;
-  const int half = K / 2;
-  const int nblk = half / QBLOCK;                  // packed blocks
-  const int b_begin = blockIdx.y * blocks_per_split;
-  const int b_end = min(b_begin + blocks_per_split, nblk);
-
-  float acc[GEMV_COLS];
-#pragma unroll
-  for (int j = 0; j < GEMV_COLS; ++j) acc[j] = 0.f;
-
-  if (n0 < N) {  // N % 16 == 0: a thread's 16 columns are all in or all out
-    for (int b = b_begin + warp; b < b_end; b += GEMV_WARPS) {
-      const int8_t* wp = wq4 + (size_t)b * QBLOCK * N + n0;
-      const __nv_bfloat16* xlo = x + b * QBLOCK;
-      const __nv_bfloat16* xhi = xlo + half;
-      float plo[GEMV_COLS], phi[GEMV_COLS];
-#pragma unroll
-      for (int j = 0; j < GEMV_COLS; ++j) plo[j] = phi[j] = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < QBLOCK; ++r) {
-        const int4 v = __ldg(reinterpret_cast<const int4*>(wp + (size_t)r * N));
-        const float xl = __bfloat162float(xlo[r]), xh = __bfloat162float(xhi[r]);
-        float lo[GEMV_COLS], hi[GEMV_COLS];
-        unpack_i4x16(v, lo, hi);
-#pragma unroll
-        for (int j = 0; j < GEMV_COLS; ++j) {
-          plo[j] = fmaf(xl, lo[j], plo[j]);
-          phi[j] = fmaf(xh, hi[j], phi[j]);
-        }
-      }
-      // the two planes' scale blocks apply to their partial sums
-      const uint4* slo = reinterpret_cast<const uint4*>(scales + (size_t)b * N + n0);
-      const uint4* shi = reinterpret_cast<const uint4*>(scales + (size_t)(b + nblk) * N + n0);
-      float s[GEMV_COLS];
-      unpack_f16x8(__ldg(slo), s);
-      unpack_f16x8(__ldg(slo + 1), s + 8);
-#pragma unroll
-      for (int j = 0; j < GEMV_COLS; ++j) acc[j] = fmaf(plo[j], s[j], acc[j]);
-      unpack_f16x8(__ldg(shi), s);
-      unpack_f16x8(__ldg(shi + 1), s + 8);
-#pragma unroll
-      for (int j = 0; j < GEMV_COLS; ++j) acc[j] = fmaf(phi[j], s[j], acc[j]);
-    }
-  }
-  gemv_cta_store(acc, out, N);
-}
 
 // ---- M > 1 -----------------------------------------------------------------
 constexpr int G4_THREADS = 256;
@@ -322,12 +281,11 @@ int launch_m_tile(int tile_n, const float* x, const int8_t* wq4, const __half* s
 
 }  // namespace
 
-// partial: [splits, N] f32 scratch, unused when splits == 1
-extern "C" int qgemv_int4(const void* x, const void* wq4, const void* scales, void* partial,
-                          void* out, int K, int N, int splits, int blocks_per_split,
-                          void* stream) {
-  return tts::launch_gemv(qgemv_int4_kernel, x, wq4, scales, partial, out, K, N, splits,
-                          blocks_per_split, stream);
+// x [K] bf16 (x_f32: f32); K split into `splits` ranges of `per` packed blocks
+// (ops/qmatmul.py::gemv_plan), the splits of a column tile one cluster
+extern "C" int qgemv_int4(const void* x, int x_f32, const void* wq4, const void* scales, void* out,
+                          int K, int N, int splits, int per, void* stream) {
+  return tts::launch_qgemv<true>(x, x_f32, wq4, scales, out, K, N, splits, per, stream);
 }
 
 // x f32 [M, K]; m_tile 8, 16, 32 or 64 tokens and tile_n 128 or 256 columns

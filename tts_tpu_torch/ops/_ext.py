@@ -33,8 +33,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 # on, kept here only: nvcc gets each entry as -DTTS_<NAME>=<value>, and
 # ops/qmatmul.py and ops/attention.py read it from this dict.
 GEOMETRY = {
-    "GEMV_WARPS": 4,          # the GEMVs: warps that share one CTA's k-range
-    "GEMV_TILE_N": 512,       # the GEMVs: weight columns per CTA
+    "GEMV_WARPS": 8,          # the GEMVs: warps per CTA, each streaming its own blocks
+    "GEMV_TILE_N": 256,       # the GEMVs: weight columns per CTA (two warps' worth)
+    "GEMV_RING": 2,           # the GEMVs: 32-row blocks in flight per warp (cp.async)
+    "GEMV_CTAS_PER_SM": 2,    # the GEMVs: CTAs resident per SM (shared memory)
+    "GEMV_MAX_X": 8192,       # the GEMVs: x elements one CTA stages (bf16), at most
+    "GEMV_MAX_CLUSTER": 8,    # the GEMVs: K splits, one CTA each of a cluster, at most
     "G4_STAGES": 4,           # qgemm_int4: cp.async ring depth (packed blocks)
     "G4_CTAS_PER_SM_8": 3,    # qgemm_int4: CTAs resident per SM, 8-token tile
     "G4_CTAS_PER_SM": 2,      # qgemm_int4: the same, 16- to 64-token tiles
@@ -50,12 +54,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types, in the order of csrc/*.cu's extern "C" API
 SIGNATURES = {
-    # x_bf16, wq, scales, partial, out, K, N, splits, blocks_per_split, stream
-    "qgemv_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_f32, wq, scales, out, K, N, splits, per, stream
+    "qgemv_int8": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     # x_f32, wq, scales, out, M, K, N, stream
     "qgemm_int8": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # x_bf16, wq4, scales, partial, out, K, N, splits, blocks_per_split, stream
-    "qgemv_int4": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_f32, wq4, scales, out, K, N, splits, per, stream
+    "qgemv_int4": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     # x_f32, wq4, scales, partial, out, M, K, N, m_tile, tile_n, splits,
     # blocks_per_split, stream
     "qgemm_int4": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -64,6 +68,13 @@ SIGNATURES = {
     "flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _F, _P),
 }
+
+# device_activity: sessions run at most, host seconds between a session's
+# edges and fn, and the host calls that put work on the device
+_SESSIONS = 5
+_SESSION_MARGIN_S = 0.005
+_DEVICE_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+                 "cuMemset")
 
 _lock = threading.Lock()
 _lib = None
@@ -157,27 +168,42 @@ def device_activity(fn) -> list[dict]:
     torch.profiler's CUDA activity: {"name", "grid"} per kernel, copy or
     memset, "grid" the launch's [x, y, z] (None for copies and memsets).
 
-    fn runs under two profiling sessions and the second is read: on the
-    card, a process's first session has once listed another count of
-    kernels for the same call.  The cause was not established."""
+    On the card, sessions lost nearly every device record (keeping the
+    host's launch calls) when fn's inputs had just come from pageable host
+    memory and fn's first launch fell inside a session, and lost none when
+    fn had run once before profiling; the cause was not established.  So
+    fn runs once unprofiled first, and a session counts only when it lists
+    exactly as many device records as fn made launch, copy and memset
+    calls (up to _SESSIONS are run).  fn runs _SESSION_MARGIN_S inside each
+    session's window, as the device's timestamps drift from the host's by
+    up to about a millisecond."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    fn()
+    acts = []
+    for _ in range(_SESSIONS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(_SESSION_MARGIN_S)
             fn()
             torch.cuda.synchronize()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    path = os.path.join(BUILD_DIR, f"trace_{os.getpid()}_{threading.get_ident()}.json")
-    prof.export_chrome_trace(path)
-    try:
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.remove(path)
-    acts = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
-                  key=lambda e: e["ts"])
+            time.sleep(_SESSION_MARGIN_S)
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        path = os.path.join(BUILD_DIR, f"trace_{os.getpid()}_{threading.get_ident()}.json")
+        prof.export_chrome_trace(path)
+        try:
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
+        acts = sorted((e for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                      key=lambda e: e["ts"])
+        calls = sum(e.get("cat") == "cuda_runtime" and e["name"].startswith(_DEVICE_CALLS)
+                    for e in events)
+        if acts and len(acts) == calls:
+            break
     return [{"name": e["name"],
              "grid": e.get("args", {}).get("grid") if e["cat"] == "kernel" else None}
             for e in acts]

@@ -16,8 +16,9 @@ Four hand-written Hopper kernels replace the TPU's Pallas kernels:
 `_qmm_kernel`) and `qgemv_int4` / `qgemm_int4` (csrc/qmatmul4.cu; were
 `_qmv4_kernel` / `_qmm4_kernel`).  The GEMVs serve M == 1 (every decode
 step) with x rounded to bf16, as the TPU kernels feed bf16 activations to
-the MXU; the GEMMs serve M > 1 (prefill) to f32 accuracy (`qgemm_int4` on
-the tensor cores with x split into two bf16 terms).  Each wrapper runs its
+the MXU, in one launch whose geometry `gemv_plan` sets; the GEMMs serve
+M > 1 (prefill) to f32 accuracy (`qgemm_int4` on the tensor cores with x
+split into two bf16 terms).  Each wrapper runs its
 plain PyTorch version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises.
 
@@ -40,8 +41,9 @@ from tts_tpu_torch.ops import _ext
 
 QBLOCK = 32
 _GEOMETRY = _ext.GEOMETRY   # the kernels' launch geometry (nvcc gets it as -D defines)
-# the GEMVs aim for 4 CTAs per SM
-_GEMV_CTAS_PER_SM = 4
+# the GEMVs: weight blocks a CTA takes at most where the column tiles alone
+# fill the card (gemv_plan)
+_GEMV_WAVE_BLOCKS = 48
 # qgemm_int4's M tiles (csrc/qmatmul4.cu qgemm_int4)
 _GEMM_M_TILES = (8, 16, 32, 64)
 # output columns dequantized at a time by the plain versions: the
@@ -199,15 +201,39 @@ def _check_cuda(name: str, x, w, scales, packed: bool) -> tuple[int, int]:
     return K, N
 
 
-def _gemv_splits(nblk: int, N: int, sms: int) -> tuple[int, int]:
-    """(splits, weight blocks per split) of `nblk` 32-row weight blocks on a
-    card of `sms` SMs: enough CTAs to fill it, at least one block per warp
-    of a CTA."""
-    n_col = -(-N // _GEOMETRY["GEMV_TILE_N"])
-    splits = max(1, min(-(-_GEMV_CTAS_PER_SM * sms // n_col),
-                        nblk // _GEOMETRY["GEMV_WARPS"]))
+def gemv_plan(K: int, N: int, sms: int, packed: bool) -> tuple[int, int, int]:
+    """(tile_n, splits, weight blocks per split) of one GEMV call
+    (`qgemv_int8`, or `qgemv_int4` when `packed`) at x [1, K] on a card of
+    `sms` SMs; the kernel's grid is (splits, N / tile_n column tiles), and
+    the splits of a column tile are one thread-block cluster.  A CTA takes
+    GEMV_TILE_N columns, and K splits into ranges of whole 32-row weight
+    blocks (packed blocks for int4: a packed row pairs x columns k and
+    K/2 + k), a power of two of them up to a cluster's worth:
+      - where the column tiles alone fill the card, only as far as keeps a
+        CTA at `_GEMV_WAVE_BLOCKS` blocks at most (a long CTA leaves a long
+        tail in the last wave);
+      - else as far as leaves at most one CTA per SM: the busiest SM sets
+        the time, and two CTAs on one SM take as long as one with twice
+        the blocks;
+    and at least as far as keeps each CTA's slice of x within GEMV_MAX_X
+    elements.  On the H100 this ran faster at every Orpheus-3B shape than
+    splitting to at least one CTA per SM, and clusters of 3, 5, 6 or 7
+    CTAs ran slower than of 2, 4 or 8 (PERF.md, PR 4; gemv_timing.py)."""
+    rows = 2 * QBLOCK if packed else QBLOCK          # x elements per weight block
+    nblk = K // rows
+    tile_n = _GEOMETRY["GEMV_TILE_N"]
+    tiles = -(-N // tile_n)
+    most = min(_GEOMETRY["GEMV_MAX_CLUSTER"], nblk)
+    splits = 1
+    while 2 * splits <= most and (-(-nblk // splits) > _GEMV_WAVE_BLOCKS if tiles >= sms
+                                  else 2 * splits * tiles <= sms):
+        splits *= 2
+    splits = max(splits, -(-K // _GEOMETRY["GEMV_MAX_X"]))
+    if splits > _GEOMETRY["GEMV_MAX_CLUSTER"]:
+        raise ValueError(f"GEMV: K={K} needs {splits} splits of x, a cluster holds "
+                         f"{_GEOMETRY['GEMV_MAX_CLUSTER']}")
     per = -(-nblk // splits)
-    return -(-nblk // per), per
+    return tile_n, -(-nblk // per), per
 
 
 def gemm4_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int, int]:
@@ -233,16 +259,20 @@ def gemm4_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int, int]:
 
 
 def _gemv(name: str, x, w, scales, packed: bool) -> torch.Tensor:
+    """One launch: the kernel reads x in bf16 or f32 (rounding it to bf16)
+    and adds the K splits inside the launch."""
     K, N = _check_cuda(name, x, w, scales, packed)
     if x.shape[0] != 1:
         raise ValueError(f"{name}: M must be 1, got {x.shape[0]}")
-    xb = x.to(torch.bfloat16).contiguous()
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.float()
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must start 16-byte aligned (vector loads)")
+    _, splits, per = gemv_plan(K, N, _ext.sm_count(x.device.index), packed)
     out = torch.empty((1, N), device=x.device, dtype=torch.float32)
-    splits, per = _gemv_splits(w.shape[0] // QBLOCK, N, _ext.sm_count(x.device.index))
-    partial = (torch.empty((splits, N), device=x.device, dtype=torch.float32)
-               if splits > 1 else out)
-    err = getattr(_ext.load(), name)(xb.data_ptr(), w.data_ptr(), scales.data_ptr(),
-                                     partial.data_ptr(), out.data_ptr(), K, N, splits, per,
+    err = getattr(_ext.load(), name)(x.data_ptr(), x.dtype == torch.float32, w.data_ptr(),
+                                     scales.data_ptr(), out.data_ptr(), K, N, splits, per,
                                      _ext.stream_ptr(x))
     _ext.check(name, err)
     return out
