@@ -14,16 +14,18 @@ Phases (any failure exits non-zero, before the final line):
      lengths of phase 5; flash-decode at the edges of its chunks), with
      device times (CUDA graphs replayed plain, kernel, [library, library,]
      kernel, plain), achieved GB/s, and each call's bound: the larger of its
-     bytes over 3.35 TB/s and its operations over 989 TFLOP/s.  The GEMVs
-     run on bf16 x, as the decode layers pass it, and the lm_head also on
-     f32 x, as the head passes it.  The library call, where one computes
-     the same function: scaled_dot_product_attention for bf16 flash-decode,
-     torch._weight_int4pack_mm for the int4 products.  The GEMVs and
-     qgemm_int4 show their CTAs and K splits as torch.profiler recorded
-     the launch (held to the plan: qgemm_int4 at least one CTA per SM on
-     the path, a split GEMV at most one), their device kernels per call
-     (the GEMVs: exactly one), and give identical bits twice; flash_decode
-     must be one device kernel per call
+     bytes over 3.35 TB/s and its operations over 989 TFLOP/s.  Every
+     product runs on bf16 x, as the layers pass it; the lm_head GEMVs also
+     on f32 x, as the head passes it, and the GEMMs on f32 x at one shape.
+     The library call, where one computes the same function:
+     scaled_dot_product_attention for bf16 flash-decode,
+     torch._weight_int4pack_mm for the int4 products.  The GEMVs and GEMMs
+     show their CTAs and K splits as a CUDA graph captured around one call
+     records the launch (held to the plan: a GEMM at least one CTA per SM
+     on the path, a split GEMV at most one), their device kernels per call
+     (a GEMV exactly one; a GEMM one, plus the split-K pass where K
+     splits: no cast), and give identical bits twice; flash_decode must
+     be one device kernel per call
   4. model: tiny Q8_0 and Q4_0 models' CUDA forwards checked against the
      port's CPU (plain) forwards, then seeded random full-width Orpheus-3B
      GGUFs (28 layers, F16 embedding, full-width SNAC), Q8_0 and Q4_0,
@@ -65,6 +67,7 @@ S_CACHE = 3584                     # (1024 + 2100) padded to the 512 chunk
 LINEAR_SHAPES = {"qkv": (3072, 5120), "o": (3072, 3072), "gateup": (3072, 16384),
                  "down": (8192, 3072), "lm_head": (3072, 157696)}
 GEMM_M = (8, 32)                   # beside the prompt lengths of phase 5's requests
+GEMM_F32_SHAPE = "down"            # the GEMMs' f32-x rows (the prefill passes bf16 x)
 LINEARS_PER_LAYER = 4              # fused qkv, o, fused gateup, down
 GEMV_TOL = GEMM_TOL = 1e-4         # same f32 sums in another order
 # torch._weight_int4pack_mm, the int4 yardstick, rounds x, the scales and its
@@ -294,12 +297,12 @@ def kernels():
         return lr
 
     def launch_grid(name, kernel, label, call, want_grid, want_kernels):
-        """The grid of `kernel` (its device name) as torch.profiler recorded
-        the launch, held to the plan; the call's device kernels counted;
-        identical bits twice."""
+        """The grid of `kernel` (its device name) as a CUDA graph captured
+        around one call records the launch, held to the plan; the call's
+        device kernels counted; identical bits twice."""
         acts = _ext.device_activity(call)
         grids = [a["grid"] for a in acts if kernel in a["name"]]
-        check(len(grids) == 1 and grids[0] is not None, f"{name} {label}: the profiler saw {acts}")
+        check(len(grids) == 1 and grids[0] is not None, f"{name} {label}: the capture saw {acts}")
         check(grids[0] == want_grid, f"{name} {label}: launched grid {grids[0]}, planned "
               f"{want_grid}")
         check(len(acts) == want_kernels, f"{name} {label}: {len(acts)} device kernels per call "
@@ -309,6 +312,8 @@ def kernels():
 
     # M = 1: decode steps (bf16 x, as the layers pass it) and the lm_head
     # (also f32 x, as _head_logits passes it); M > 1: the rest of prefill
+    # (bf16 x, as the layers pass it; f32 x at one shape, which runs the
+    # kernels' hi + lo products)
     gemm_ms = sorted(set(GEMM_M) | set(prompt_lengths()))
     for bits, fn, plain, tpu_line, ms_list, iters in (
             (8, tq.qgemv_int8, tq.qgemv_int8_plain, "tts_tpu/ops/qmatmul.py:144", (1,), 20),
@@ -320,11 +325,12 @@ def kernels():
         tol = GEMV_TOL if gemv else GEMM_TOL
         for i, (name, (K, N)) in enumerate(LINEAR_SHAPES.items()):
             ws = rotating_weights(K, N, dev, 100 * (not gemv) + i + bits, int4=bits == 4)
-            runs = [(M, torch.float32) for M in ms_list] if not gemv else (
-                [(1, torch.bfloat16)] + [(1, torch.float32)] * (name == "lm_head"))
+            runs = [(M, torch.bfloat16) for M in ms_list] + [
+                (M, torch.float32) for M in ms_list if name == (
+                    "lm_head" if gemv else GEMM_F32_SHAPE)]
             for M, xdtype in runs:
                 x = torch.randn((M, K), device=dev).to(xdtype)
-                label = f"{name} M={M}" + (f" x={str(xdtype)[6:]}" if gemv else "")
+                label = f"{name} M={M} x={str(xdtype)[6:]}"
                 want = plain(x, *ws[0])
                 a, r = rel_err(fn(x, *ws[0]), want)
                 fns = {"plain": lambda j: plain(x, *ws[j % len(ws)]),
@@ -343,17 +349,18 @@ def kernels():
                     launch["splits"] = splits
                     check(tiles >= sms or launch["ctas"] <= sms, f"{fn.__name__} {label}: "
                           f"{launch['ctas']} CTAs in {splits} splits > {sms} SMs")
-                elif fn is tq.qgemm_int4:
-                    # the GEMM's grid (column tiles, M tiles, K splits), and
-                    # the split-K pass after it when K splits
-                    m_tile, tile_n, splits, _ = tq.gemm4_plan(M, K, N, sms)
-                    launch = launch_grid(fn.__name__, "qgemm_int4", label,
+                else:
+                    # the shared GEMM's grid (column tiles, M tiles, K
+                    # splits), then the split-K pass when K splits, and no
+                    # other device kernel (no cast of x)
+                    m_tile, tile_n, splits, _ = tq.gemm_plan(M, K, N, sms, bits == 4)
+                    launch = launch_grid(fn.__name__, "qgemm_kernel", label,
                                          lambda: fn(x, *ws[0]),
                                          [-(-N // tile_n), -(-M // m_tile), splits],
                                          1 + (splits > 1))
                     launch["splits"] = splits
                     check(name == "lm_head" or launch["ctas"] >= sms,
-                          f"qgemm_int4 {label}: {launch['ctas']} CTAs < {sms} SMs")
+                          f"{fn.__name__} {label}: {launch['ctas']} CTAs < {sms} SMs")
                 t = timed(fns, {"plain": 3, "kernel": iters, "library": iters})
                 wbytes = K * N * bits // 8 + K // 32 * N * 2
                 rows.append(row(f"{label} K={K} N={N}", a, r, t["kernel"], t["plain"],
@@ -365,7 +372,7 @@ def kernels():
                 lib_note = f"  (library rel_err {lr:.1e})" if lr is not None else ""
                 grid = (f"  {launch['ctas']} CTAs ({launch['splits']} splits, "
                         f"{launch['device_kernels']} device kernels)" if launch else "")
-                print(f"{fn.__name__} {label:17s} K={K:5d} N={N:6d}  rel_err {r:.2e} "
+                print(f"{fn.__name__} {label:22s} K={K:5d} N={N:6d}  rel_err {r:.2e} "
                       f"(tol {tol:.0e})  kernel {t['kernel'] * 1e3:8.1f} us  plain "
                       f"{t['plain'] * 1e3:9.1f} us{lib}  bound "
                       f"{rows[-1]['bound_ms'] * 1e3:6.1f} us  {tflops:5.2f} TFLOP/s  "

@@ -7,7 +7,7 @@ replays, weights rotated past the L2), with torch._weight_int4pack_mm on
 the same int4 weights and x as the yardstick, after half a second of
 matrix products that let the clocks settle; each shape is timed twice
 over and the second round kept.  Each row also counts the device kernels
-one call runs (torch.profiler).
+one call runs (_ext.device_activity).
 
     python3 gemv_timing.py [LABEL] [--alternatives]
 

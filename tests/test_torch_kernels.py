@@ -43,6 +43,10 @@ def rand_q4(K, N, device, seed):
     return wq4, sc
 
 
+def rand_weight(packed, K, N, device, seed):
+    return rand_q4(K, N, device, seed) if packed else rand_q8(K, N, device, seed)
+
+
 def rand_attention(pos, quant, device):
     """q [24, 128] f32 and a [8, 3584, 128] cache (bf16, or int8 + scales)
     whose rows past pos hold NaN, as a reused cache may."""
@@ -86,10 +90,6 @@ def test_qgemv_int8_matches_plain(cuda, K, N, xdtype):
     assert rel_err(got, tq.qgemv_int8_plain(x, wq, sc)) < 1e-4
 
 
-def rand_gemv(packed, K, N, device, seed):
-    return rand_q4(K, N, device, seed) if packed else rand_q8(K, N, device, seed)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
@@ -98,7 +98,7 @@ def test_qgemv_is_one_kernel_with_the_planned_grid(cuda, K, N, packed, xdtype):
     """One device kernel per call, with no cast and no split-K pass, for
     bf16 and f32 x; its grid is gemv_plan's (splits, column tiles), at
     most one CTA per SM where the column tiles leave SMs free."""
-    w, sc = rand_gemv(packed, K, N, cuda, 3)
+    w, sc = rand_weight(packed, K, N, cuda, 3)
     x = torch.randn((1, K), device=cuda).to(xdtype)
     fn = tq.qgemv_int4 if packed else tq.qgemv_int8
     tile_n, splits, _ = tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)
@@ -116,7 +116,7 @@ def test_qgemv_is_deterministic(cuda, K, N, packed):
     """The splits add in split order inside the cluster (no atomics): two
     calls give identical bits, at o and down (the most splits)."""
     assert tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)[1] > 1
-    w, sc = rand_gemv(packed, K, N, cuda, 4)
+    w, sc = rand_weight(packed, K, N, cuda, 4)
     x = torch.randn((1, K), device=cuda).bfloat16()
     fn = tq.qgemv_int4 if packed else tq.qgemv_int8
     a, b = fn(x, w, sc), fn(x, w, sc)
@@ -135,7 +135,7 @@ def test_qgemv_on_two_streams(cuda, packed):
     plain = tq.qgemv_int4_plain if packed else tq.qgemv_int8_plain
     runs = []
     for seed in (5, 6):
-        w, sc = rand_gemv(packed, K, N, cuda, seed)
+        w, sc = rand_weight(packed, K, N, cuda, seed)
         x = torch.randn((1, K), device=cuda).bfloat16()
         runs.append((torch.cuda.Stream(), (x, w, sc), plain(x, w, sc), []))
     torch.cuda.synchronize()
@@ -151,18 +151,40 @@ def test_qgemv_on_two_streams(cuda, packed):
         assert max(rel_err(o, want) for o in outs) < 1e-4
 
 
+# prompt lengths: every M tile (8-64), ragged M (17, 77), 1024 (the longest
+# prompt, max_context_length) and 2048 (Dia's cross-KV)
+GEMM_M = [2, 8, 16, 17, 52, 64, 77, 1024, 2048]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [2, 8, 32, 77, 1024])
-@pytest.mark.parametrize("K,N", [ORPHEUS_SHAPES[i] for i in (0, 2, 3, 4)])
-def test_qgemm_int8_matches_plain(cuda, M, K, N):
-    """f32 FMA over exactly dequantized weights, another summation order:
-    relative error bound 1e-4.  M = 77 leaves a ragged M tile; 1024 is the
-    longest prompt (max_context_length)."""
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("M", GEMM_M)
+@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
+def test_qgemm_int8_matches_plain(cuda, K, N, M, xdtype):
+    """Tensor cores on exact integer weights (int8 -> f32 -> bf16, exact),
+    block scales on the f32 partial sums, split-K: relative error bound
+    1e-4 against the f32 plain version, on bf16 x (one product: the bf16
+    values are summed exactly, in another order) and on f32 x (bf16 hi +
+    lo, about 16 bits of x)."""
     wq, sc = rand_q8(K, N, cuda, K + N + M)
-    x = torch.randn((M, K), device=cuda)
+    x = torch.randn((M, K), device=cuda).to(xdtype)
+    n = tq.qgemm_int8.launches
     got = tq.qgemm_int8(x, wq, sc)
     torch.cuda.synchronize()
+    assert tq.qgemm_int8.launches == n + 1
     assert rel_err(got, tq.qgemm_int8_plain(x, wq, sc)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_qgemm_int8_takes_every_byte_value(cuda):
+    """Weights holding every byte -128..127 (the port's int8 layout can hold
+    -128, which Q8_0 never writes) against the plain version."""
+    K, N = 3072, 3072
+    wq = (torch.arange(K * N, dtype=torch.int64) * 7919 % 256 - 128).to(torch.int8)
+    wq = wq.view(K, N).to(cuda)
+    sc = (torch.rand((K // 32, N)) * 2e-3 + 1e-4).half().to(cuda)
+    x = torch.randn((64, K), device=cuda).bfloat16()
+    assert rel_err(tq.qgemm_int8(x, wq, sc), tq.qgemm_int8_plain(x, wq, sc)) < 1e-4
 
 
 @pytest.mark.cuda
@@ -182,15 +204,16 @@ def test_qgemv_int4_matches_plain(cuda, K, N, xdtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [2, 8, 16, 17, 52, 64, 77, 1024, 2048])
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("M", GEMM_M)
 @pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
-def test_qgemm_int4_matches_plain(cuda, M, K, N):
-    """Tensor cores on exact integer weights with x split into bf16 hi + lo
-    (about 16 bits of x), block scales on the f32 partial sums, split-K:
-    relative error bound 1e-4 against the f32 plain version.  Every M tile
-    (8-64), ragged M (17, 77), and 2048 (Dia's cross-KV) are covered."""
+def test_qgemm_int4_matches_plain(cuda, M, K, N, xdtype):
+    """Tensor cores on exact integer weights, block scales on the f32
+    partial sums, split-K: relative error bound 1e-4 against the f32 plain
+    version, on bf16 x (one product) and on f32 x (split into bf16 hi + lo,
+    about 16 bits of x)."""
     wq4, sc = rand_q4(K, N, cuda, K + N + M)
-    x = torch.randn((M, K), device=cuda)
+    x = torch.randn((M, K), device=cuda).to(xdtype)
     n = tq.qgemm_int4.launches
     got = tq.qgemm_int4(x, wq4, sc)
     torch.cuda.synchronize()
@@ -204,12 +227,26 @@ def test_qgemm_int4_is_deterministic(cuda, M):
     """Split-K partials are added in split order (no atomics): two calls
     give identical bits, at down (K = 8192, the most splits)."""
     K, N = ORPHEUS_SHAPES[3]
-    assert tq.gemm4_plan(M, K, N, _ext.sm_count(cuda.index or 0))[2] > 1
+    assert tq.gemm_plan(M, K, N, _ext.sm_count(cuda.index or 0), True)[2] > 1
     wq4, sc = rand_q4(K, N, cuda, M)
     x = torch.randn((M, K), device=cuda)
     a, b = tq.qgemm_int4(x, wq4, sc), tq.qgemm_int4(x, wq4, sc)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("M", [8, 64])
+def test_qgemm_int8_is_deterministic(cuda, M, xdtype):
+    """The same for qgemm_int8, at down and o (the most splits)."""
+    for K, N in (ORPHEUS_SHAPES[3], ORPHEUS_SHAPES[1]):
+        assert tq.gemm_plan(M, K, N, _ext.sm_count(cuda.index or 0), False)[2] > 1
+        wq, sc = rand_q8(K, N, cuda, M)
+        x = torch.randn((M, K), device=cuda).to(xdtype)
+        a, b = tq.qgemm_int8(x, wq, sc), tq.qgemm_int8(x, wq, sc)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -246,16 +283,38 @@ def test_flash_decode_is_one_kernel(cuda, quant, pos):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [8, 64])
 def test_qgemm_int4_launches_the_planned_grid(cuda, M):
-    """The profiler's record of the launch shows the grid gemm4_plan chose,
-    and the split-K pass after it."""
+    """The launch shows the grid gemm_plan chose, and the split-K pass
+    after it."""
     K, N = ORPHEUS_SHAPES[3]
-    m_tile, tile_n, splits, _ = tq.gemm4_plan(M, K, N, _ext.sm_count(cuda.index or 0))
+    m_tile, tile_n, splits, _ = tq.gemm_plan(M, K, N, _ext.sm_count(cuda.index or 0), True)
     wq4, sc = rand_q4(K, N, cuda, M)
     x = torch.randn((M, K), device=cuda)
     acts = _ext.device_activity(lambda: tq.qgemm_int4(x, wq4, sc))
-    assert [a["grid"] for a in acts if "qgemm_int4" in a["name"]] == [
+    assert [a["grid"] for a in acts if "qgemm_kernel" in a["name"]] == [
         [-(-N // tile_n), -(-M // m_tile), splits]], acts
     assert len(acts) == 2 and "splitk_sum" in acts[1]["name"], acts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("M", [8, 52, 64, 1024])
+@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES[:4])
+def test_qgemm_launches_the_planned_grid(cuda, K, N, M, packed, xdtype):
+    """Each GEMM call is the shared kernel with gemm_plan's grid, then the
+    split-K pass where K splits, and nothing else: no cast of x, bf16 or
+    f32; on the prefill's shapes (M <= 64) at least one CTA per SM."""
+    sms = _ext.sm_count(cuda.index or 0)
+    m_tile, tile_n, splits, _ = tq.gemm_plan(M, K, N, sms, packed)
+    w, sc = rand_weight(packed, K, N, cuda, M)
+    x = torch.randn((M, K), device=cuda).to(xdtype)
+    fn = tq.qgemm_int4 if packed else tq.qgemm_int8
+    acts = _ext.device_activity(lambda: fn(x, w, sc))
+    grid = [-(-N // tile_n), -(-M // m_tile), splits]
+    assert len(acts) == 1 + (splits > 1), acts
+    assert "qgemm_kernel" in acts[0]["name"] and acts[0]["grid"] == grid, acts
+    assert splits == 1 or "splitk_sum" in acts[1]["name"], acts
+    assert M > 64 or grid[0] * grid[1] * grid[2] >= sms
 
 
 @pytest.mark.cuda

@@ -58,13 +58,15 @@ def _tensor(path, name):
 @pytest.mark.parametrize("M", [1, 2, 8, 32])
 def test_quantized_matmul_matches_jax(M, K, N):
     """M > 1: the f32 whole-K path, atol = rtol = 1e-4 (as the JAX package's
-    own Q8 test).  M == 1: both sides round x to bf16 and sum exact bf16 x
-    int8 products in f32, so only the summation order differs: rtol 1e-5."""
+    own Q8 test), on f32 x and on bf16 x as the prefill passes it (both
+    sides then sum the bf16 values exactly in f32).  M == 1: both sides
+    round x to bf16 and sum exact bf16 x int8 products in f32, so only the
+    summation order differs: rtol 1e-5."""
     rng = np.random.default_rng(M * 10007 + K + N)
     wq, sc = make_q8(rng, K, N)
     x = rng.standard_normal((M, K)).astype(np.float32)
-    want = np.asarray(jq.quantized_matmul(jnp.asarray(x), jnp.asarray(wq),
-                                          jnp.asarray(sc.astype(np.float16).view(np.uint16))))
+    sj = jnp.asarray(sc.astype(np.float16).view(np.uint16))
+    want = np.asarray(jq.quantized_matmul(jnp.asarray(x), jnp.asarray(wq), sj))
     got = tq.quantized_matmul(torch.from_numpy(x), torch.from_numpy(wq),
                               torch.from_numpy(sc.astype(np.float16))).numpy()
     if M == 1:
@@ -74,6 +76,13 @@ def test_quantized_matmul_matches_jax(M, K, N):
         assert np.abs(exact - want).max() > 10 * np.abs(got - want).max()
     else:
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        xb = torch.from_numpy(x).bfloat16()
+        want_b = np.asarray(jq.quantized_matmul(jnp.asarray(xb.float().numpy()).astype(
+            jnp.bfloat16), jnp.asarray(wq), sj))
+        got_b = tq.quantized_matmul(xb, torch.from_numpy(wq),
+                                    torch.from_numpy(sc.astype(np.float16))).numpy()
+        assert got_b.dtype == np.float32
+        np.testing.assert_allclose(got_b, want_b, rtol=1e-4, atol=1e-4)
 
 
 def test_vector_input_and_dense_linear(rng):
@@ -209,19 +218,42 @@ def gemv_smem_bytes(packed: bool, tile_n: int, per: int, splits: int) -> int:
     return g["GEMV_WARPS"] * g["GEMV_RING"] * slot + per * 32 * planes * 2 + pushed
 
 
+def gemm_smem_bytes(packed: bool, x_f32: bool, m_tile: int, tile_n: int) -> int:
+    """Shared memory of one GEMM CTA (csrc/qmatmul.cuh GemmSmem): the
+    format's ring of stages, each one 32-row weight block (padded rows),
+    its scales per nibble plane, and the x columns it meets (f32 or bf16,
+    padded rows), then for f32 x the stage's bf16 hi and lo terms."""
+    planes = 2 if packed else 1
+    xk = planes * 32
+    brow = (xk + 8) * 2
+    xrow = xk * 4 + 16 if x_f32 else brow
+    stage = 32 * (tile_n + 16) + planes * tile_n * 2 + m_tile * xrow
+    stages = _ext.GEOMETRY["G4_STAGES" if packed else "G8_STAGES"]
+    return stages * stage + (2 * m_tile * brow if x_f32 else 0)
+
+
 def test_kernel_geometry_is_one_source():
     """The launch geometry that the plans read is what nvcc compiles the
-    kernels with: every entry of _ext.GEOMETRY is a -D define of the build,
-    the split plan keeps each split at least the ring's depth, and at every
-    Orpheus-3B shape GEMV_CTAS_PER_SM GEMV CTAs fit the H100's 228 KB of
-    shared memory per SM, with the 1 KB the card reserves per CTA."""
+    kernels with: every entry of _ext.GEOMETRY is a -D define of the build;
+    the GEMM split plan keeps each split at least the format's ring depth;
+    every GEMM tile the plan can pick (both formats, bf16 and f32 x) fits
+    its CTAs per SM in the H100's 228 KB of shared memory per SM, with the
+    1 KB the card reserves per CTA; and at every Orpheus-3B shape
+    GEMV_CTAS_PER_SM GEMV CTAs fit too."""
     flags = set(_ext.NVCC_FLAGS)
-    assert all(f"-DTTS_{k}={v}" in flags for k, v in _ext.GEOMETRY.items())
-    stages = _ext.GEOMETRY["G4_STAGES"]
-    for K in (3072, 8192):
-        _, _, splits, per = tq.gemm4_plan(8, K, 3072, SMS)
-        assert splits > 1 and per >= stages
     g = _ext.GEOMETRY
+    assert all(f"-DTTS_{k}={v}" in flags for k, v in g.items())
+    assert {"G8_STAGES", "G8_CTAS_PER_SM_8", "G8_CTAS_PER_SM", "G8_WIDE_TOKENS"} <= set(g)
+    for packed, fmt in ((False, "G8"), (True, "G4")):
+        for K in (3072, 8192):
+            _, _, splits, per = tq.gemm_plan(8, K, 3072, SMS, packed)
+            assert splits > 1 and per >= g[f"{fmt}_STAGES"]
+        for m_tile in (8, 16, 32, 64):
+            per_sm = g[f"{fmt}_CTAS_PER_SM_8" if m_tile == 8 else f"{fmt}_CTAS_PER_SM"]
+            for tile_n in (128, 256) if m_tile <= g[f"{fmt}_WIDE_TOKENS"] else (128,):
+                for x_f32 in (False, True):
+                    smem = gemm_smem_bytes(packed, x_f32, m_tile, tile_n)
+                    assert per_sm * (smem + 1024) <= 228 * 1024, (fmt, m_tile, tile_n, x_f32)
     for packed in (False, True):
         for K, N in ORPHEUS_GEMVS.values():
             tile_n, splits, per = tq.gemv_plan(K, N, SMS, packed)
@@ -233,36 +265,39 @@ def test_kernel_geometry_is_one_source():
             assert per * (64 if packed else 32) <= g["GEMV_MAX_X"]
 
 
-def split_blocks(M, K, N):
-    """The packed blocks each split of gemm4_plan(M, K, N) takes, in order."""
-    _, _, splits, per = tq.gemm4_plan(M, K, N, SMS)
-    nblk = K // 64
+def split_blocks(M, K, N, packed):
+    """The weight blocks (packed blocks for int4) each split of
+    gemm_plan(M, K, N) takes, in order."""
+    _, _, splits, per = tq.gemm_plan(M, K, N, SMS, packed)
+    nblk = K // (64 if packed else 32)
     return [list(range(s * per, min((s + 1) * per, nblk))) for s in range(splits)]
 
 
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
 @pytest.mark.parametrize("M", [8, 64])
 @pytest.mark.parametrize("name", list(ORPHEUS_GEMMS))
-def test_gemm4_plan_fills_the_card_at_orpheus_shapes(name, M):
+def test_gemm_plan_fills_the_card_at_orpheus_shapes(name, M, packed):
     """At every Orpheus-3B shape of the prefill (M = 64) and of an 8-token
     verify step, the split-K plan launches at least one CTA per SM, and its
     M tile holds the M rows in one tile."""
     K, N = ORPHEUS_GEMMS[name]
-    m_tile, tile_n, splits, _ = tq.gemm4_plan(M, K, N, SMS)
+    m_tile, tile_n, splits, _ = tq.gemm_plan(M, K, N, SMS, packed)
     assert m_tile == M
     assert -(-N // tile_n) * -(-M // m_tile) * splits >= SMS
-    assert sum(split_blocks(M, K, N), []) == list(range(K // 64))
+    assert sum(split_blocks(M, K, N, packed), []) == list(range(K // (64 if packed else 32)))
 
 
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
 @pytest.mark.parametrize("M", [2, 9, 17, 33, 77, 1024, 2048])
-def test_gemm4_plan_covers_every_packed_block_once(M):
-    """Any M up to 2048 and any K % 64 == 0: the splits take every packed
+def test_gemm_plan_covers_every_block_once(M, packed):
+    """Any M up to 2048 and any K % 64 == 0: the splits take every weight
     block exactly once, in order, none is empty, and the M tile is the
     smallest of 8-64 tokens that holds M (64 past that)."""
     for K in (64, 128, 512, 3072, 8192):
         for N in (256, 3072, 157696):
-            m_tile = tq.gemm4_plan(M, K, N, SMS)[0]
-            parts = split_blocks(M, K, N)
-            assert sum(parts, []) == list(range(K // 64)) and all(parts)
+            m_tile = tq.gemm_plan(M, K, N, SMS, packed)[0]
+            parts = split_blocks(M, K, N, packed)
+            assert sum(parts, []) == list(range(K // (64 if packed else 32))) and all(parts)
             assert m_tile == min(t for t in (8, 16, 32, 64) if t >= min(M, 64))
 
 
@@ -274,28 +309,52 @@ def int4_planes_as_the_kernel_unpacks(wq4: torch.Tensor) -> list[torch.Tensor]:
             for shift in (0, 4)]
 
 
-def emulate_qgemm_int4(x: torch.Tensor, wq4: torch.Tensor, scales: torch.Tensor,
-                       split_x: bool = True) -> torch.Tensor:
-    """The Hopper qgemm_int4's arithmetic on the CPU: x split into bf16 hi
-    and lo (exact bf16 x integer products, summed in f32 by the tensor
-    cores), each 32-row block's f32 partial sum times its f16 scale, the
-    splits of gemm4_plan added in split order.  split_x=False drops lo."""
+def int8_as_the_kernel_unpacks(wq: torch.Tensor) -> torch.Tensor:
+    """int8 [K, N] as f32, the Hopper GEMM's way: the f32 bits 0x4B0000uu
+    (u = byte ^ 0x80) are 2^23 + u, less 2^23 + 128 (one FADD), and the
+    bf16 the MMA reads is the upper half of that float's bits."""
+    u = (wq.to(torch.int32) ^ 0x80) & 0xFF
+    f = (u | 0x4B000000).view(torch.float32) - (2.0 ** 23 + 128)
+    return ((f.view(torch.int32) >> 16).to(torch.int16)).view(torch.bfloat16).float()
+
+
+def emulate_qgemm(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, packed: bool,
+                  split_x: bool = True) -> torch.Tensor:
+    """The Hopper GEMM's arithmetic (qgemm_int8, or qgemm_int4 when packed)
+    on the CPU: x split into bf16 hi and lo (exact bf16 x integer products,
+    summed in f32 by the tensor cores), each 32-row block's (and nibble
+    plane's) f32 partial sum times its f16 scale, the splits of gemm_plan
+    added in split order.  split_x=False drops lo, as the kernel does for
+    bf16 x."""
+    x = x.float()
     M, K = x.shape
-    half, N = K // 2, wq4.shape[1]
+    N = w.shape[1]
     hi = x.to(torch.bfloat16).float()
     lo = (x - hi).to(torch.bfloat16).float() if split_x else torch.zeros_like(x)
-    planes = int4_planes_as_the_kernel_unpacks(wq4)
+    if packed:
+        planes, half = int4_planes_as_the_kernel_unpacks(w), K // 2
+    else:
+        planes, half = [int8_as_the_kernel_unpacks(w)], 0
+    nblk = w.shape[0] // 32
     out = torch.zeros((M, N))
-    for blocks in split_blocks(M, K, N):
+    for blocks in split_blocks(M, K, N, packed):
         acc = torch.zeros((M, N))
         for b in blocks:
             rows = slice(b * 32, (b + 1) * 32)
-            for p, w in enumerate(planes):
+            for p, wp in enumerate(planes):
                 cols = slice(p * half + b * 32, p * half + (b + 1) * 32)
-                part = hi[:, cols] @ w[rows] + lo[:, cols] @ w[rows]
-                acc += part * scales[b + p * (half // 32)].float()
+                part = hi[:, cols] @ wp[rows] + lo[:, cols] @ wp[rows]
+                acc += part * scales[b + p * nblk].float()
         out += acc
     return out
+
+
+def test_int8_unpack_gives_the_exact_integers():
+    """Every byte value -128..127 goes through the kernel's int8 -> f32 ->
+    bf16 route exactly (bf16 has 8 significant bits: no bias alone could
+    give all 256 values)."""
+    wq = torch.arange(-128, 128, dtype=torch.int8).reshape(16, 16)
+    assert torch.equal(int8_as_the_kernel_unpacks(wq), wq.float())
 
 
 def test_int4_unpack_gives_the_exact_integers(rng):
@@ -308,28 +367,62 @@ def test_int4_unpack_gives_the_exact_integers(rng):
     assert torch.equal(hi, (w >> 4).float())
 
 
-@pytest.mark.parametrize("wide", [False, True], ids=["normal", "wide"])
-@pytest.mark.parametrize("M", [2, 8, 64])
-def test_qgemm_int4_arithmetic_matches_plain(M, wide):
-    """The kernel's arithmetic (emulated) is within the card test's 1e-4 of
-    the f32 plain version, also for x spanning 1e-3 to 1e3 in magnitude;
-    bf16(x) alone (no lo term) would miss 1e-4 by far.  K = 1024 splits in
-    four, so the split order is exercised too."""
+def gemm_case(M, packed, wide, seed):
+    """x [M, 1024] f32 (wide: magnitudes 1e-3..1e3) and a Q8_0 or Q4_0
+    weight [1024, 256] with its f16 scales, as torch tensors."""
     K, N = 1024, 256
-    rng = np.random.default_rng(M + 100 * wide)
-    wq4, sc = make_q4(rng, K, N)
+    rng = np.random.default_rng(seed)
+    w, sc = make_q4(rng, K, N) if packed else make_q8(rng, K, N)
     x = rng.standard_normal((M, K)).astype(np.float32)
     if wide:
         x = np.sign(x) * 10.0 ** rng.uniform(-3, 3, (M, K)).astype(np.float32)
-    args = (torch.from_numpy(x), torch.from_numpy(wq4), torch.from_numpy(sc.astype(np.float16)))
-    assert len(split_blocks(M, K, N)) > 1
+    return torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(sc.astype(np.float16))
+
+
+def rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["normal", "wide"])
+@pytest.mark.parametrize("M", [2, 8, 64])
+def test_qgemm_int4_arithmetic_matches_plain(M, wide):
+    """The kernel's arithmetic (emulated) on f32 x is within the card
+    test's 1e-4 of the f32 plain version, also for x spanning 1e-3 to 1e3
+    in magnitude; bf16(x) alone (no lo term) would miss 1e-4 by far.
+    K = 1024 splits in four, so the split order is exercised too."""
+    args = gemm_case(M, True, wide, M + 100 * wide)
+    assert len(split_blocks(M, 1024, 256, True)) > 1
     want = tq.qgemm_int4_plain(*args)
+    assert rel_err(emulate_qgemm(*args, packed=True), want) < 1e-4
+    assert rel_err(emulate_qgemm(*args, packed=True, split_x=False), want) > 1e-4
 
-    def rel(got):
-        return ((got - want).abs().max() / want.abs().max()).item()
 
-    assert rel(emulate_qgemm_int4(*args)) < 1e-4
-    assert rel(emulate_qgemm_int4(*args, split_x=False)) > 1e-4
+@pytest.mark.parametrize("wide", [False, True], ids=["normal", "wide"])
+@pytest.mark.parametrize("M", [2, 8, 64])
+def test_qgemm_int8_arithmetic_matches_plain(M, wide):
+    """The same for the int8 instance: on f32 x within 1e-4 of the plain
+    version (x from 1e-3 to 1e3 too), and not without the lo term; K =
+    1024 splits (32 blocks), so the split order is exercised."""
+    args = gemm_case(M, False, wide, 7 + M + 100 * wide)
+    assert len(split_blocks(M, 1024, 256, False)) > 1
+    want = tq.qgemm_int8_plain(*args)
+    assert rel_err(emulate_qgemm(*args, packed=False), want) < 1e-4
+    assert rel_err(emulate_qgemm(*args, packed=False, split_x=False), want) > 1e-4
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("M", [2, 64])
+def test_qgemm_on_bf16_x_needs_no_lo_term(M, packed):
+    """On bf16 x (the prefill's activations) lo = bf16(x - hi) is zero, so
+    the kernel's one product gives the same bits as two, and it is within
+    1e-4 of the plain version, which sums those bf16 values exactly in f32:
+    the kernel needs no cast of x and runs half the products."""
+    x, w, sc = gemm_case(M, packed, False, 11 + M + packed)
+    xb = x.bfloat16()
+    one = emulate_qgemm(xb, w, sc, packed=packed, split_x=False)
+    assert torch.equal(one, emulate_qgemm(xb, w, sc, packed=packed))
+    plain = tq.qgemm_int4_plain if packed else tq.qgemm_int8_plain
+    assert rel_err(one, plain(xb, w, sc)) < 1e-4
 
 
 def gemv_split_blocks(K, N, packed, sms=SMS):

@@ -1,5 +1,5 @@
-// Helpers shared by the port's kernels: vector unpacking of int8 weights and
-// f16 scales into f32 registers.
+// Helpers shared by the port's kernels: vector unpacking of int8 and bf16
+// values into f32 registers, asynchronous copies, tensor-core products.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,32 +9,10 @@
 
 namespace tts {
 
-// 16 signed bytes (one 16-byte load) -> 16 floats.  An arithmetic right
-// shift of the byte moved to the top of the word sign-extends it.
-__device__ __forceinline__ void unpack_i8x16(const int4 v, float f[16]) {
-  const int w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) f[4 * i + j] = (float)((int)((unsigned)w[i] << (24 - 8 * j)) >> 24);
-  }
-}
-
 // 4 signed bytes (one 32-bit word) -> 4 floats.
 __device__ __forceinline__ void unpack_i8x4(const int w, float f[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) f[j] = (float)((int)((unsigned)w << (24 - 8 * j)) >> 24);
-}
-
-// 8 halves (one 16-byte load) -> 8 floats.
-__device__ __forceinline__ void unpack_f16x8(const uint4 v, float f[8]) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
 }
 
 // 8 bf16 (one 16-byte load) -> 8 floats.

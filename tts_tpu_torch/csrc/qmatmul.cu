@@ -24,63 +24,32 @@
 //     and x is read as bf16 or f32 and rounded to bf16 as it is staged,
 //     so a call is one launch with no cast kernel.
 //
-// qgemm_int8 replaces ::_qmm_kernel (M > 1: prefill).  A shared-memory tiled
-// GEMM on the CUDA cores: a 32-row k-tile is exactly one scale block, so the
-// weight tile is dequantized once into f32 shared memory (int8 * f16 is exact
-// in f32) and every thread accumulates a small register tile in f32.  Bound
-// at prefill sizes: f32 FMA throughput; tensor cores (mma.sync / wgmma) are
-// later work.
+// qgemm_int8 replaces ::_qmm_kernel (M > 1: prefill; later Dia's cross-KV
+// at M up to 2048).  Bound: the weight bytes over 3.35 TB/s at every M up
+// to a few hundred (2*M*K*N over 989 TFLOP/s only past that).  It is
+// qmatmul.cuh's qgemm_kernel, shared with qgemm_int4 (see qmatmul4.cu for
+// the int4 layout).  What it does about the three causes that held the
+// first qgemm_int8 (f32 FMA over a dequantized shared-memory tile, N/128 x
+// M/64 CTAs, no split-K, no asynchronous copies) 30-100x over its bound:
+//   - the CUDA cores: mma.sync m16n8k16, bf16 in, f32 accumulate, weight
+//     columns on the MMA's 16-row side and tokens on its 8-wide side.  An
+//     int8 byte becomes its exact float (PRMT + FADD, byte_minus) and two
+//     of them one bf16x2 (a PRMT of the floats' upper halves): about 2.75
+//     CUDA-core instructions per weight for each CTA that reads it, well
+//     under the time the weight bytes take at M <= 64.  bf16 x (what the
+//     prefill passes) runs one product per k16 step with no cast kernel;
+//     f32 x is split into bf16 hi + lo and runs two.  Each 32-row block's
+//     f16 scale multiplies that block's f32 partial sum, as _qmm_kernel's
+//     f32 dot over exactly dequantized weights would within sum order;
+//   - too few CTAs: a CTA takes 128 or 256 columns, up to 64 tokens and a
+//     range of whole 32-row blocks; the host plan (ops/qmatmul.py::
+//     gemm_plan) splits K so one wave of resident CTAs covers the card at
+//     every Orpheus-3B shape, and a second kernel adds the splits in order
+//     (no atomics: identical bits every run);
+//   - nothing overlapping: a ring of TTS_G8_STAGES stages of cp.async
+//     copies (one 32-row block, its scales, the x columns it meets) keeps
+//     blocks in flight while the tensor cores work on the oldest.
 #include "qmatmul.cuh"
-
-namespace {
-
-using namespace tts;
-
-// ---- M > 1 -----------------------------------------------------------------
-template <int BM>
-__global__ void __launch_bounds__(GM_THREADS)
-qgemm_int8_kernel(const float* __restrict__ x, const int8_t* __restrict__ wq,
-                  const __half* __restrict__ scales, float* __restrict__ out,
-                  int M, int K, int N) {
-  __shared__ float xs[GM_BK][BM + 1];                 // x tile, k-major (+1: no bank conflicts)
-  __shared__ __align__(16) float ws[GM_BK][GM_BN];    // dequantized weights
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * GM_BN;
-  const int wr = tid >> 3, wc = (tid & 7) * 16;       // this thread's 16 weights
-  const bool wlive = n0 + wc < N;                     // N % 16 == 0
-
-  float acc[BM / 16][8];
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GM_BK) {
-    gemm_load_x<BM>(xs, x, m0, M, K, k0);
-    float w[16];
-    if (wlive) {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(wq + (size_t)(k0 + wr) * N + n0 + wc));
-      const uint4* sp = reinterpret_cast<const uint4*>(scales + (size_t)(k0 / QBLOCK) * N + n0 + wc);
-      float s[16];
-      unpack_f16x8(__ldg(sp), s);
-      unpack_f16x8(__ldg(sp + 1), s + 8);
-      unpack_i8x16(v, w);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) w[j] *= s[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) w[j] = 0.f;
-    }
-    gemm_store_w(ws, wr, wc, w);
-    __syncthreads();
-    gemm_fma_tile<BM>(acc, xs, ws);
-    __syncthreads();
-  }
-  gemm_store_out<BM>(acc, out, m0, n0, M, N);
-}
-
-}  // namespace
 
 // x [K] bf16 (x_f32: f32); K split into `splits` ranges of `per` 32-row blocks
 // (ops/qmatmul.py::gemv_plan), the splits of a column tile one cluster
@@ -89,8 +58,11 @@ extern "C" int qgemv_int8(const void* x, int x_f32, const void* wq, const void* 
   return tts::launch_qgemv<false>(x, x_f32, wq, scales, out, K, N, splits, per, stream);
 }
 
-extern "C" int qgemm_int8(const void* x, const void* wq, const void* scales, void* out,
-                          int M, int K, int N, void* stream) {
-  return tts::launch_gemm(qgemm_int8_kernel<16>, qgemm_int8_kernel<64>, x, wq, scales, out,
-                          M, K, N, stream);
+// x [M, K] bf16 (x_f32: f32); geometry from ops/qmatmul.py::gemm_plan
+// (qmatmul.cuh launch_qgemm)
+extern "C" int qgemm_int8(const void* x, int x_f32, const void* wq, const void* scales,
+                          void* partial, void* out, int M, int K, int N, int m_tile, int tile_n,
+                          int splits, int per, void* stream) {
+  return tts::launch_qgemm<false>(x, x_f32, wq, scales, partial, out, M, K, N, m_tile, tile_n,
+                                  splits, per, stream);
 }

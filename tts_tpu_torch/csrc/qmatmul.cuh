@@ -1,10 +1,12 @@
-// The parts that the int8 (qmatmul.cu) and int4 (qmatmul4.cu) weight-quantized
-// products share: the GEMV (one kernel, two weight formats), the split-K
-// pass of qgemm_int4, and qgemm_int8's shared-memory tile steps.  Each
-// translation unit that includes this gets its own copy (inline or static).
+// The kernels of the int8 (qmatmul.cu) and int4 (qmatmul4.cu) weight-quantized
+// products, each written once for both weight formats: the GEMV (M == 1)
+// and the tensor-core GEMM (M > 1) with its split-K pass.  Each translation
+// unit that includes this instantiates its own format (inline or static).
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -292,8 +294,310 @@ int launch_qgemv(const void* x, int x_f32, const void* w, const void* scales, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- M > 1 -----------------------------------------------------------------
+// qgemm_int8 and qgemm_int4: one tensor-core kernel, qgemm_kernel<PACKED,
+// XF32, MT, WN>, for both weight formats and for bf16 or f32 x.  TTS_G8_* /
+// TTS_G4_* come from ops/_ext.py GEOMETRY, which the host plan
+// (ops/qmatmul.py::gemm_plan) reads too.
+constexpr int GEMM_THREADS = 256;   // 8 warps side by side across the CTA's columns
+
+template <bool PACKED>
+struct GemmGeometry {
+  static constexpr int STAGES = PACKED ? TTS_G4_STAGES : TTS_G8_STAGES;   // cp.async ring depth
+  static constexpr int CTAS_PER_SM_8 = PACKED ? TTS_G4_CTAS_PER_SM_8 : TTS_G8_CTAS_PER_SM_8;
+  static constexpr int CTAS_PER_SM = PACKED ? TTS_G4_CTAS_PER_SM : TTS_G8_CTAS_PER_SM;
+  static constexpr int WIDE_TOKENS = PACKED ? TTS_G4_WIDE_TOKENS : TTS_G8_WIDE_TOKENS;
+};
+
+// Shared memory of one CTA with MT 8-token tiles and WN 16-column tiles per
+// warp (BN = 128 WN columns): STAGES stages of {one 32-row weight block
+// [32][WROW] bytes, its scales [PLANES][BN] f16, the x columns it meets
+// [BM][XK] (bf16, or f32 when XF32) in rows of XROW bytes}, then (XF32 only)
+// the current stage's x as bf16 hi and lo terms, [2][BM] rows of BROW bytes.
+template <bool PACKED, bool XF32, int MT, int WN>
+struct GemmSmem {
+  static constexpr int PLANES = PACKED ? 2 : 1;    // int4: rows i and i + K/2 share a byte
+  static constexpr int STAGES = GemmGeometry<PACKED>::STAGES;
+  static constexpr int BM = 8 * MT;
+  static constexpr int BN = 128 * WN;
+  static constexpr int WROW = BN + 16;             // padded: the fragment loads hit distinct banks
+  static constexpr int XK = PLANES * QBLOCK;       // x columns of a stage
+  static constexpr int BROW = (XK + 8) * 2;        // a bf16 row, padded: ldmatrix rows on distinct banks
+  static constexpr int XROW = XF32 ? XK * 4 + 16 : BROW;
+  static constexpr int W_BYTES = QBLOCK * WROW;
+  static constexpr int S_BYTES = PLANES * BN * 2;
+  static constexpr int STAGE = W_BYTES + S_BYTES + BM * XROW;
+  static constexpr int TOTAL = STAGES * STAGE + (XF32 ? 2 * BM * BROW : 0);
+};
+
+// Fragment order.  Weight columns sit on the MMA's 16-row side and tokens on
+// its 8-wide side: A row g is weight column 2g and A row g+8 column 2g+1 of
+// the warp's 16, so lane (g, t) reads both columns with one 16-bit load of
+// a weight row; its k slots 2t, 2t+1 (2t+8, 2t+9) are weight rows 2t, 2t+1
+// (2t+8, 2t+9) of the k16 step, so B is x in its own order and ldmatrix
+// reads it straight from the staged rows.
+
+// bytes {r c, r c+1, r' c, r' c+1} of a word -> the bf16 pairs (r, r') of
+// column c and of column c+1, for the low (lo) or high (hi) nibble plane:
+// (u ^ 8) | 0x4300 is bf16 136 + q, and one FMA subtracts the 136 exactly
+__device__ __forceinline__ void int4_pairs(uint32_t w, bool high, uint32_t& c0, uint32_t& c1) {
+  if (high) w >>= 4;
+  uint32_t e = (w & 0x000F000Fu) ^ 0x43084308u;
+  uint32_t o = ((w >> 8) & 0x000F000Fu) ^ 0x43084308u;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(c0) : "r"(e), "r"(0x3F803F80u), "r"(0xC308C308u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(c1) : "r"(o), "r"(0x3F803F80u), "r"(0xC308C308u));
+}
+
+// The same for int8 bytes.  bf16 keeps 8 significant bits, so no bias puts
+// 256 byte values on consecutive bf16 integers: each byte becomes its exact
+// float first (byte_minus: one PRMT and one FADD), and an integer of at
+// most 8 significant bits is its f32's upper half, so one PRMT packs two
+// of them as bf16 with no rounding (what cvt.rn.bf16x2.f32 would give).
+__device__ __forceinline__ void int8_pairs(uint32_t w, uint32_t& c0, uint32_t& c1) {
+  const uint32_t u = w ^ 0x80808080u;
+  const uint32_t f0 = __float_as_uint(byte_minus(u, 0, I8_BIAS));
+  const uint32_t f1 = __float_as_uint(byte_minus(u, 1, I8_BIAS));
+  const uint32_t f2 = __float_as_uint(byte_minus(u, 2, I8_BIAS));
+  const uint32_t f3 = __float_as_uint(byte_minus(u, 3, I8_BIAS));
+  c0 = __byte_perm(f0, f2, 0x7632);
+  c1 = __byte_perm(f1, f3, 0x7632);
+}
+
+// two 8x8 bf16 matrices: lane l < 16 gives the address of row l % 8 of
+// matrix l / 8, and every lane gets row l / 4, columns 2 (l % 4) .. +1 of
+// each: one k16 step's B fragment of x stored token-major
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// the same for four matrices, lane l giving row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// out = x [M, K] @ dequant(w, scales) over weight blocks [blockIdx.z * per,
+// +per) -> out [gridDim.z][M][N] (the split's partial sums, or the result
+// when gridDim.z == 1).  w int8 [K, N], or (PACKED) int4 [K/2, N] with row i
+// in the low nibble and row i + K/2 in the high one; scales f16 [K/32, N];
+// x bf16, or (XF32) f32.  grid (N / BN, M / BM, splits), GEMM_THREADS
+// threads, GemmSmem::TOTAL bytes.  Register caps set the CTAs resident per
+// SM (GemmGeometry), and the host plan splits K into one wave of them.
+// Per stage: the exact integer x bf16(x) products of one 32-row block (and
+// nibble plane) summed by the tensor cores in f32, then the block's f16
+// scale on that sum; f32 x is split into hi = bf16(x) and lo = bf16(x -
+// hi), both multiplied (about 16 bits of x), bf16 x runs one product.
+template <bool PACKED, bool XF32, int MT, int WN>
+__global__ void __launch_bounds__(GEMM_THREADS, MT == 1 ? GemmGeometry<PACKED>::CTAS_PER_SM_8
+                                                        : GemmGeometry<PACKED>::CTAS_PER_SM)
+qgemm_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
+             const __half* __restrict__ scales, float* __restrict__ out, int M, int K, int N,
+             int per) {
+  using L = GemmSmem<PACKED, XF32, MT, WN>;
+  using XT = typename std::conditional<XF32, float, __nv_bfloat16>::type;
+  constexpr int XCH = 16 / sizeof(XT);            // x elements per 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * L::BN, m0 = blockIdx.y * L::BM;
+  const int rows = K / L::PLANES, nblk = rows / QBLOCK;   // rows of w, its 32-row blocks
+  const int b_begin = blockIdx.z * per;
+  const int nb = min(per, nblk - b_begin);
+  const XT* xp = static_cast<const XT*>(x);
+
+  // weight block b_begin + i -> ring stage i % STAGES (past the edges of N
+  // and M the copies zero-fill)
+  auto load_stage = [&](int i) {
+    unsigned char* st = smem + (i % L::STAGES) * L::STAGE;
+    const int b = b_begin + i;
+    for (int j = tid; j < QBLOCK * L::BN / 16; j += GEMM_THREADS) {   // weights: 16-column chunks
+      const int r = j / (L::BN / 16), c = j % (L::BN / 16) * 16;
+      const bool ok = n0 + c < N;
+      cp_async16(st + r * L::WROW + c, ok ? w + (size_t)(b * QBLOCK + r) * N + n0 + c : w, ok);
+    }
+    if (tid < L::PLANES * L::BN / 8) {   // scales of block b (low plane), b + K/64 (high plane)
+      const int p = tid / (L::BN / 8), c = tid % (L::BN / 8) * 8;
+      const bool ok = n0 + c < N;
+      cp_async16(st + L::W_BYTES + p * L::BN * 2 + c * 2,
+                 ok ? scales + (size_t)(b + p * nblk) * N + n0 + c : scales, ok);
+    }
+    unsigned char* xs = st + L::W_BYTES + L::S_BYTES;
+    for (int j = tid; j < L::BM * (L::XK / XCH); j += GEMM_THREADS) {   // x: each plane's 32
+      const int r = j / (L::XK / XCH), e = j % (L::XK / XCH) * XCH;
+      const int p = e / QBLOCK;
+      const bool ok = m0 + r < M;
+      cp_async16(xs + r * L::XROW + e * (int)sizeof(XT),
+                 ok ? xp + (size_t)(m0 + r) * K + p * rows + b * QBLOCK + e % QBLOCK : xp, ok);
+    }
+  };
+
+  float acc[WN][MT][4];
+#pragma unroll
+  for (int wi = 0; wi < WN; ++wi)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[wi][mt][u] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < L::STAGES - 1; ++i) {
+    if (i < nb) load_stage(i);
+    cp_async_commit();                   // empty groups keep the count uniform
+  }
+  unsigned char* hilo = smem + L::STAGES * L::STAGE;
+  // this lane's ldmatrix row: token lane % 8 of a tile, x columns 8 (lane / 8 % 2)
+  // .. of a step, and for f32 x lanes 16-31 the same in the lo terms
+  const int lrow = (lane & 7) * L::BROW + (lane >> 3 & 1) * 16 +
+                   (XF32 ? (lane >> 4) * L::BM * L::BROW : 0);
+  for (int i = 0; i < nb; ++i) {
+    cp_async_wait<L::STAGES - 2>();      // stage i has landed (this thread's copies)
+    __syncthreads();                     // everyone's copies; stage i-1 (and hilo) is free
+    if (i + L::STAGES - 1 < nb) load_stage(i + L::STAGES - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (i % L::STAGES) * L::STAGE;
+    const unsigned char* xs = st + L::W_BYTES + L::S_BYTES;
+    if constexpr (XF32) {                // hi = bf16(x), lo = bf16(x - hi): x - hi is exact in f32
+      for (int e = tid; e < L::BM * L::XK / 2; e += GEMM_THREADS) {
+        const int r = e / (L::XK / 2), c = e % (L::XK / 2) * 2;
+        const float2 v = *reinterpret_cast<const float2*>(xs + r * L::XROW + c * 4);
+        const uint32_t h = pack_bf16x2(v.x, v.y);
+        *reinterpret_cast<uint32_t*>(hilo + r * L::BROW + c * 2) = h;
+        *reinterpret_cast<uint32_t*>(hilo + (L::BM + r) * L::BROW + c * 2) =
+            pack_bf16x2(v.x - __uint_as_float(h << 16), v.y - __uint_as_float(h & 0xffff0000u));
+      }
+      __syncthreads();
+    }
+    const uint32_t xb = static_cast<uint32_t>(__cvta_generic_to_shared(XF32 ? hilo : xs)) + lrow;
+    const __half2* sc = reinterpret_cast<const __half2*>(st + L::W_BYTES);
+#pragma unroll
+    for (int wi = 0; wi < WN; ++wi) {    // the warp's 16-column tiles
+      const int col = (warp * WN + wi) * 16;
+      // weight rows 2t, 2t+1, 2t+8, 2t+9 of each k16 step, columns col + 2g, +1
+      uint32_t wd[2][2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const unsigned char* wr = st + (s * 16 + 2 * t) * L::WROW + col + 2 * g;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wd[s][h] = *reinterpret_cast<const uint16_t*>(wr + 8 * h * L::WROW) |
+                     (uint32_t)*reinterpret_cast<const uint16_t*>(wr + (8 * h + 1) * L::WROW) << 16;
+      }
+      // the 64-token tile takes one plane at a time (within the register
+      // cap of two CTAs per SM), the narrower ones both together
+#pragma unroll(MT >= 8 ? 1 : 2)
+      for (int p = 0; p < L::PLANES; ++p) {   // low plane (block b), high plane (b + K/64)
+        float part[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) part[mt][u] = 0.f;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {    // the block's two k16 steps
+          uint32_t a[4];
+          if constexpr (PACKED) {
+            int4_pairs(wd[s][0], p, a[0], a[1]);
+            int4_pairs(wd[s][1], p, a[2], a[3]);
+          } else {
+            int8_pairs(wd[s][0], a[0], a[1]);
+            int8_pairs(wd[s][1], a[2], a[3]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            // x columns 0-7 and 8-15 of the step, tokens of tile mt
+            const uint32_t off = mt * 8 * L::BROW + (p * QBLOCK + s * 16) * 2;
+            if constexpr (XF32) {
+              uint32_t b[4];               // {hi b0, hi b1, lo b0, lo b1}
+              ldmatrix_x4(b, xb + off);
+              mma_bf16_16816(part[mt], a, b[0], b[1]);
+              mma_bf16_16816(part[mt], a, b[2], b[3]);
+            } else {
+              uint32_t b[2];
+              ldmatrix_x2(b, xb + off);
+              mma_bf16_16816(part[mt], a, b[0], b[1]);
+            }
+          }
+        }
+        // the block's scales of columns 2g and 2g+1 multiply its partial sums
+        const float2 s2 = __half22float2(sc[p * (L::BN / 2) + col / 2 + g]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          acc[wi][mt][0] = fmaf(part[mt][0], s2.x, acc[wi][mt][0]);
+          acc[wi][mt][1] = fmaf(part[mt][1], s2.x, acc[wi][mt][1]);
+          acc[wi][mt][2] = fmaf(part[mt][2], s2.y, acc[wi][mt][2]);
+          acc[wi][mt][3] = fmaf(part[mt][3], s2.y, acc[wi][mt][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // c rows g, g+8 are columns 2g, 2g+1; c columns 2t, 2t+1 are tokens
+  float* dst = out + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int wi = 0; wi < WN; ++wi) {
+    const int n = n0 + (warp * WN + wi) * 16 + 2 * g;
+    if (n >= N) continue;                // N % 16 == 0: n + 1 < N too
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m = m0 + mt * 8 + 2 * t;
+      if (m < M)
+        *reinterpret_cast<float2*>(dst + (size_t)m * N + n) =
+            make_float2(acc[wi][mt][0], acc[wi][mt][2]);
+      if (m + 1 < M)
+        *reinterpret_cast<float2*>(dst + (size_t)(m + 1) * N + n) =
+            make_float2(acc[wi][mt][1], acc[wi][mt][3]);
+    }
+  }
+}
+
+template <bool PACKED, bool XF32, int MT, int WN>
+int launch_gemm_tile(const void* x, const void* w, const void* scales, float* dst, int M, int K,
+                     int N, int splits, int per, cudaStream_t st) {
+  using L = GemmSmem<PACKED, XF32, MT, WN>;
+  const auto kernel = &qgemm_kernel<PACKED, XF32, MT, WN>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOTAL);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((N + L::BN - 1) / L::BN, (M + L::BM - 1) / L::BM, splits);
+  kernel<<<grid, GEMM_THREADS, L::TOTAL, st>>>(x, static_cast<const int8_t*>(w),
+                                               static_cast<const __half*>(scales), dst, M, K, N,
+                                               per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the M tile of MT 8-token tiles, 128 columns per CTA or, up to the
+// format's WIDE_TOKENS tokens, 256; any other tile_n is refused
+template <bool PACKED, bool XF32, int MT>
+int launch_gemm_m(int tile_n, const void* x, const void* w, const void* scales, float* dst,
+                  int M, int K, int N, int splits, int per, cudaStream_t st) {
+  if (tile_n == 128)
+    return launch_gemm_tile<PACKED, XF32, MT, 1>(x, w, scales, dst, M, K, N, splits, per, st);
+  if constexpr (8 * MT <= GemmGeometry<PACKED>::WIDE_TOKENS) {
+    if (tile_n == 256)
+      return launch_gemm_tile<PACKED, XF32, MT, 2>(x, w, scales, dst, M, K, N, splits, per, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool PACKED, bool XF32>
+int launch_gemm_x(int m_tile, int tile_n, const void* x, const void* w, const void* scales,
+                  float* dst, int M, int K, int N, int splits, int per, cudaStream_t st) {
+  switch (m_tile) {
+#define TILE(MTOK)                                                                              \
+  case MTOK:                                                                                    \
+    return launch_gemm_m<PACKED, XF32, MTOK / 8>(tile_n, x, w, scales, dst, M, K, N, splits, per, \
+                                                 st);
+    TILE(8) TILE(16) TILE(32) TILE(64)
+#undef TILE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // out[n] = sum over splits of partial[s, n], in split order (deterministic);
-// N here is the length of one split's plane (qgemm_int4's split-K pass)
+// N here is the length of one split's plane
 static __global__ void splitk_sum_kernel(const float* __restrict__ partial,
                                          float* __restrict__ out, int splits, int N) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -303,89 +607,26 @@ static __global__ void splitk_sum_kernel(const float* __restrict__ partial,
   out[n] = sum;
 }
 
-// ---- M > 1 -----------------------------------------------------------------
-constexpr int GM_BN = 128;
-constexpr int GM_BK = QBLOCK;
-constexpr int GM_THREADS = 256;  // 16 x 16; each thread: BM/16 rows x 8 columns
-
-// x[m0 .. m0+BM, kc .. kc+GM_BK) -> xs, k-major (rows past M read as 0);
-// the reads are coalesced along k
-template <int BM>
-__device__ __forceinline__ void gemm_load_x(float (*xs)[BM + 1], const float* __restrict__ x,
-                                            int m0, int M, int K, int kc) {
-  for (int i = threadIdx.x; i < BM * GM_BK; i += GM_THREADS) {
-    const int r = i / GM_BK, c = i % GM_BK;
-    const int m = m0 + r;
-    xs[c][r] = m < M ? x[(size_t)m * K + kc + c] : 0.f;
-  }
-}
-
-// this thread's 16 dequantized weights -> ws[wr][wc .. wc+16)
-__device__ __forceinline__ void gemm_store_w(float (*ws)[GM_BN], int wr, int wc,
-                                             const float w[16]) {
-#pragma unroll
-  for (int j = 0; j < 16; j += 4)
-    *reinterpret_cast<float4*>(&ws[wr][wc + j]) = make_float4(w[j], w[j + 1], w[j + 2], w[j + 3]);
-}
-
-// acc[i][j] += sum over the k-tile of xs[k][row i] * ws[k][column j]
-template <int BM>
-__device__ __forceinline__ void gemm_fma_tile(float (&acc)[BM / 16][8], float (*xs)[BM + 1],
-                                              float (*ws)[GM_BN]) {
-  constexpr int RM = BM / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 8
-  for (int kk = 0; kk < GM_BK; ++kk) {
-    float a[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = xs[kk][ty * RM + i];
-    const float4 b0 = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&ws[kk][64 + tx * 4]);
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-  }
-}
-
-template <int BM>
-__device__ __forceinline__ void gemm_store_out(const float (&acc)[BM / 16][8],
-                                               float* __restrict__ out, int m0, int n0,
-                                               int M, int N) {
-  constexpr int RM = BM / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int m = m0 + ty * RM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) out[(size_t)m * N + n] = acc[i][j];
-    }
-  }
-}
-
-// A GEMM kernel: (x f32 [M, K], weights, scales f16, out f32 [M, N], M, K, N)
-using GemmKernel = void (*)(const float*, const int8_t*, const __half*, float*, int, int, int);
-
-// BM = 16 for short prompts, 64 otherwise; returns cudaGetLastError().
-inline int launch_gemm(GemmKernel small, GemmKernel large, const void* x,
-                       const void* w, const void* scales, void* out, int M, int K, int N,
-                       void* stream) {
+// One GEMM call: x [M, K] bf16 (x_f32: f32); m_tile 8, 16, 32 or 64 tokens
+// and tile_n 128 or 256 columns per CTA; K split into `splits` ranges of
+// `per` weight blocks (ops/qmatmul.py::gemm_plan); partial: [splits, M, N]
+// f32 scratch, unused when splits == 1, the splits then added in order by a
+// second kernel.  Returns a CUDA error code (0: launched).
+template <bool PACKED>
+int launch_qgemm(const void* x, int x_f32, const void* w, const void* scales, void* partial,
+                 void* out, int M, int K, int N, int m_tile, int tile_n, int splits, int per,
+                 void* stream) {
+  if (splits < 1 || per < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  const __half* sp = static_cast<const __half*>(scales);
-  float* op = static_cast<float*>(out);
-  if (M <= 16) {
-    const dim3 grid((N + GM_BN - 1) / GM_BN, (M + 15) / 16);
-    small<<<grid, GM_THREADS, 0, st>>>(xp, wp, sp, op, M, K, N);
-  } else {
-    const dim3 grid((N + GM_BN - 1) / GM_BN, (M + 63) / 64);
-    large<<<grid, GM_THREADS, 0, st>>>(xp, wp, sp, op, M, K, N);
-  }
+  float* dst = static_cast<float*>(splits == 1 ? out : partial);
+  const int err = x_f32 ? launch_gemm_x<PACKED, true>(m_tile, tile_n, x, w, scales, dst, M, K, N,
+                                                      splits, per, st)
+                        : launch_gemm_x<PACKED, false>(m_tile, tile_n, x, w, scales, dst, M, K, N,
+                                                       splits, per, st);
+  if (err != 0 || splits == 1) return err;
+  const int total = M * N;   // the splits' [M, N] planes, summed in split order
+  splitk_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(static_cast<const float*>(partial),
+                                                         static_cast<float*>(out), splits, total);
   return static_cast<int>(cudaGetLastError());
 }
 

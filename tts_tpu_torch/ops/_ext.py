@@ -20,7 +20,6 @@ import ctypes
 import functools
 import glob
 import hashlib
-import json
 import os
 import subprocess
 import threading
@@ -39,6 +38,10 @@ GEOMETRY = {
     "GEMV_CTAS_PER_SM": 2,    # the GEMVs: CTAs resident per SM (shared memory)
     "GEMV_MAX_X": 8192,       # the GEMVs: x elements one CTA stages (bf16), at most
     "GEMV_MAX_CLUSTER": 8,    # the GEMVs: K splits, one CTA each of a cluster, at most
+    "G8_STAGES": 6,           # qgemm_int8: cp.async ring depth (32-row blocks)
+    "G8_CTAS_PER_SM_8": 3,    # qgemm_int8: CTAs resident per SM, 8-token tile
+    "G8_CTAS_PER_SM": 2,      # qgemm_int8: the same, 16- to 64-token tiles
+    "G8_WIDE_TOKENS": 16,     # qgemm_int8: M tiles up to this also run 256 columns wide
     "G4_STAGES": 4,           # qgemm_int4: cp.async ring depth (packed blocks)
     "G4_CTAS_PER_SM_8": 3,    # qgemm_int4: CTAs resident per SM, 8-token tile
     "G4_CTAS_PER_SM": 2,      # qgemm_int4: the same, 16- to 64-token tiles
@@ -56,25 +59,30 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, x_f32, wq, scales, out, K, N, splits, per, stream
     "qgemv_int8": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x_f32, wq, scales, out, M, K, N, stream
-    "qgemm_int8": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_f32, wq, scales, partial, out, M, K, N, m_tile, tile_n, splits,
+    # per, stream
+    "qgemm_int8": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, x_f32, wq4, scales, out, K, N, splits, per, stream
     "qgemv_int4": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x_f32, wq4, scales, partial, out, M, K, N, m_tile, tile_n, splits,
-    # blocks_per_split, stream
-    "qgemm_int4": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # the same with wq4
+    "qgemm_int4": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, k_scale, v_scale, pos, counters, part_m, part_l, part_acc,
     # out, Hq, Hkv, S, kv_int8, scale, stream
     "flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _F, _P),
 }
 
-# device_activity: sessions run at most, host seconds between a session's
-# edges and fn, and the host calls that put work on the device
-_SESSIONS = 5
-_SESSION_MARGIN_S = 0.005
-_DEVICE_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cuMemcpy", "cudaMemset",
-                 "cuMemset")
+# device_activity: the graph node types it reports (cuda.h CUgraphNodeType),
+# by name
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """cuda.h CUDA_KERNEL_NODE_PARAMS_v2."""
+    _fields_ = [("func", ctypes.c_void_p),
+                *((f"{d}Dim{a}", ctypes.c_uint) for d in ("grid", "block") for a in "XYZ"),
+                ("sharedMemBytes", ctypes.c_uint), ("kernelParams", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
 
 _lock = threading.Lock()
 _lib = None
@@ -163,47 +171,87 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def device_activity(fn) -> list[dict]:
-    """What one call of fn runs on the card, in launch order, from
-    torch.profiler's CUDA activity: {"name", "grid"} per kernel, copy or
-    memset, "grid" the launch's [x, y, z] (None for copies and memsets).
+@functools.lru_cache(maxsize=None)
+def _libcuda():
+    """libcuda, with the graph-inspection entry points typed."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    size_p = ctypes.POINTER(ctypes.c_size_t)
+    for name, argtypes in (
+            ("cuGraphGetNodes", (_P, _P, size_p)),
+            ("cuGraphNodeGetDependencies", (_P, _P, size_p)),
+            ("cuGraphNodeGetType", (_P, ctypes.POINTER(ctypes.c_int))),
+            ("cuGraphKernelNodeGetParams_v2", (_P, ctypes.POINTER(_KernelNodeParams))),
+            ("cuFuncGetName", (ctypes.POINTER(ctypes.c_char_p), _P)),
+            ("cuKernelGetName", (ctypes.POINTER(ctypes.c_char_p), _P))):
+        fn = getattr(cu, name, None)     # cuKernelGetName: libcuda of CUDA 12.3 on
+        if fn is not None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    return cu
 
-    On the card, sessions lost nearly every device record (keeping the
-    host's launch calls) when fn's inputs had just come from pageable host
-    memory and fn's first launch fell inside a session, and lost none when
-    fn had run once before profiling; the cause was not established.  So
-    fn runs once unprofiled first, and a session counts only when it lists
-    exactly as many device records as fn made launch, copy and memset
-    calls (up to _SESSIONS are run).  fn runs _SESSION_MARGIN_S inside each
-    session's window, as the device's timestamps drift from the host's by
-    up to about a millisecond."""
+
+def _cu(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: libcuda error {err}")
+
+
+def _graph_nodes(cu, getter, owner) -> list[int]:
+    """The nodes a cuGraphGetNodes-like getter lists for `owner`."""
+    n = ctypes.c_size_t(0)
+    _cu(getter(owner, None, ctypes.byref(n)), getter.__name__)
+    if n.value == 0:                  # libcuda refuses an empty array
+        return []
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu(getter(owner, nodes, ctypes.byref(n)), getter.__name__)
+    return [nodes[i] for i in range(n.value)]
+
+
+def device_activity(fn) -> list[dict]:
+    """What one call of fn puts on the card, in launch order: {"name",
+    "grid"} per kernel, copy or memset, "grid" the kernel's launch grid
+    [x, y, z] (None for copies and memsets), "name" the kernel's (mangled)
+    function name or "memcpy" / "memset".
+
+    Read from a CUDA graph captured around one call, through libcuda: the
+    graph's nodes in dependency order, each kernel node's grid, and its
+    function's name.  fn runs once uncaptured first (that loads the kernel
+    library and sets kernel attributes), and the captured call never runs.
+    A capture records every launch, where torch.profiler on the card lost
+    device records."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    cu = _libcuda()
+    nodes = _graph_nodes(cu, cu.cuGraphGetNodes, graph.raw_cuda_graph())
+    depth: dict[int, int] = {}
+
+    def node_depth(node) -> int:      # one stream's launches form a chain
+        if node not in depth:
+            deps = _graph_nodes(cu, cu.cuGraphNodeGetDependencies, node)
+            depth[node] = 1 + max((node_depth(d) for d in deps), default=-1)
+        return depth[node]
+
     acts = []
-    for _ in range(_SESSIONS):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(_SESSION_MARGIN_S)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(_SESSION_MARGIN_S)
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        path = os.path.join(BUILD_DIR, f"trace_{os.getpid()}_{threading.get_ident()}.json")
-        prof.export_chrome_trace(path)
-        try:
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        finally:
-            os.remove(path)
-        acts = sorted((e for e in events
-                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
-                      key=lambda e: e["ts"])
-        calls = sum(e.get("cat") == "cuda_runtime" and e["name"].startswith(_DEVICE_CALLS)
-                    for e in events)
-        if acts and len(acts) == calls:
-            break
-    return [{"name": e["name"],
-             "grid": e.get("args", {}).get("grid") if e["cat"] == "kernel" else None}
-            for e in acts]
+    for node in sorted(nodes, key=lambda nd: (node_depth(nd), nodes.index(nd))):
+        code = ctypes.c_int(-1)
+        _cu(cu.cuGraphNodeGetType(node, ctypes.byref(code)), "cuGraphNodeGetType")
+        kind = _NODE_TYPES.get(code.value)
+        if kind != "kernel":
+            if kind is not None:
+                acts.append({"name": kind, "grid": None})
+            continue
+        p = _KernelNodeParams()
+        _cu(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)),
+            "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if p.func:
+            _cu(cu.cuFuncGetName(ctypes.byref(name), p.func), "cuFuncGetName")
+        else:                         # a node may name its kernel by a CUkernel handle only
+            _cu(cu.cuKernelGetName(ctypes.byref(name), p.kern), "cuKernelGetName")
+        acts.append({"name": name.value.decode(),
+                     "grid": [p.gridDimX, p.gridDimY, p.gridDimZ]})
+    return acts

@@ -17,8 +17,9 @@ Four hand-written Hopper kernels replace the TPU's Pallas kernels:
 `_qmv4_kernel` / `_qmm4_kernel`).  The GEMVs serve M == 1 (every decode
 step) with x rounded to bf16, as the TPU kernels feed bf16 activations to
 the MXU, in one launch whose geometry `gemv_plan` sets; the GEMMs serve
-M > 1 (prefill) to f32 accuracy (`qgemm_int4` on the tensor cores with x
-split into two bf16 terms).  Each wrapper runs its
+M > 1 (prefill), both on the tensor cores in one kernel whose geometry
+`gemm_plan` sets: bf16 x as it is (one product), f32 x to f32 accuracy
+(split into two bf16 terms).  Each wrapper runs its
 plain PyTorch version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises.
 
@@ -44,7 +45,7 @@ _GEOMETRY = _ext.GEOMETRY   # the kernels' launch geometry (nvcc gets it as -D d
 # the GEMVs: weight blocks a CTA takes at most where the column tiles alone
 # fill the card (gemv_plan)
 _GEMV_WAVE_BLOCKS = 48
-# qgemm_int4's M tiles (csrc/qmatmul4.cu qgemm_int4)
+# the GEMMs' M tiles (csrc/qmatmul.cuh launch_qgemm)
 _GEMM_M_TILES = (8, 16, 32, 64)
 # output columns dequantized at a time by the plain versions: the
 # temporaries stay small at the 157k-wide lm_head
@@ -162,7 +163,7 @@ def qgemv_int8_plain(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) ->
 
 
 def qgemm_int8_plain(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """x [M, K] -> [M, N] f32, all in f32."""
+    """x [M, K] -> [M, N] f32, all in f32 (bf16 x converts exactly)."""
     return _dequant_matmul(x.float(), wq, scales, _dequant_int8)
 
 
@@ -236,22 +237,27 @@ def gemv_plan(K: int, N: int, sms: int, packed: bool) -> tuple[int, int, int]:
     return tile_n, -(-nblk // per), per
 
 
-def gemm4_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int, int]:
-    """(m_tile, tile_n, splits, packed blocks per split) of `qgemm_int4` at
-    x [M, K] and packed weights [K/2, N] on a card of `sms` SMs.  The M tile
-    is the smallest of 8-64 tokens that holds M.  K splits into ranges of
-    whole 32-row packed blocks (a packed row pairs x columns k and K/2 + k),
-    as many as one wave of resident CTAs holds (then at least `sms` CTAs,
-    where K allows), each range at least the kernel's ring depth.  The
-    narrow M tiles take 256 weight columns per CTA (each weight row read in
-    256-byte runs) where that still gives 1.5 CTAs per SM, else 128."""
+def gemm_plan(M: int, K: int, N: int, sms: int, packed: bool) -> tuple[int, int, int, int]:
+    """(m_tile, tile_n, splits, weight blocks per split) of one GEMM call
+    (`qgemm_int8`, or `qgemm_int4` when `packed`) at x [M, K] on a card of
+    `sms` SMs; the kernel's grid is (N / tile_n, M / m_tile, splits).  The
+    M tile is the smallest of 8-64 tokens that holds M.  K splits into
+    ranges of whole 32-row weight blocks (packed blocks for int4: a packed
+    row pairs x columns k and K/2 + k), as many as one wave of resident
+    CTAs holds (then at least `sms` CTAs, where K allows), each range at
+    least the format's ring depth.  The narrow M tiles take 256 weight
+    columns per CTA (each weight row read in 256-byte runs) where that
+    still gives 1.5 CTAs per SM, else 128.  The depth, the CTAs per SM and
+    the wide-tile limit are each format's own (`_ext.GEOMETRY` G8_* and
+    G4_*): an int8 block meets 32 x columns, a packed one 64."""
+    fmt = "G4" if packed else "G8"
     m_tile = next((t for t in _GEMM_M_TILES if M <= t), _GEMM_M_TILES[-1])
-    nblk = K // (2 * QBLOCK)
-    per_sm = _GEOMETRY["G4_CTAS_PER_SM_8" if m_tile == 8 else "G4_CTAS_PER_SM"]
-    tiles_n = (256, 128) if m_tile <= _GEOMETRY["G4_WIDE_TOKENS"] else (128,)
+    nblk = K // (2 * QBLOCK if packed else QBLOCK)
+    per_sm = _GEOMETRY[f"{fmt}_CTAS_PER_SM_8" if m_tile == 8 else f"{fmt}_CTAS_PER_SM"]
+    tiles_n = (256, 128) if m_tile <= _GEOMETRY[f"{fmt}_WIDE_TOKENS"] else (128,)
     for tile_n in tiles_n:
         ctas = -(-N // tile_n) * -(-M // m_tile)
-        per = -(-nblk // max(1, min(per_sm * sms // ctas, nblk // _GEOMETRY["G4_STAGES"])))
+        per = -(-nblk // max(1, min(per_sm * sms // ctas, nblk // _GEOMETRY[f"{fmt}_STAGES"])))
         splits = -(-nblk // per)
         if 2 * ctas * splits >= 3 * sms:
             break
@@ -279,22 +285,22 @@ def _gemv(name: str, x, w, scales, packed: bool) -> torch.Tensor:
 
 
 def _gemm(name: str, x, w, scales, packed: bool) -> torch.Tensor:
+    """One kernel, plus the split-K pass where K splits: the kernel reads x
+    in bf16 (one product) or f32 (split into bf16 hi + lo, two products)."""
     K, N = _check_cuda(name, x, w, scales, packed)
     M = x.shape[0]
-    xf = x.float().contiguous()
-    if xf.data_ptr() % 16:
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.float()
+    x = x.contiguous()
+    if x.data_ptr() % 16:
         raise ValueError(f"{name}: x must start 16-byte aligned (asynchronous copies)")
+    m_tile, tile_n, splits, per = gemm_plan(M, K, N, _ext.sm_count(x.device.index), packed)
     out = torch.empty((M, N), device=x.device, dtype=torch.float32)
-    lib, stream = _ext.load(), _ext.stream_ptr(x)
-    if packed:
-        m_tile, tile_n, splits, per = gemm4_plan(M, K, N, _ext.sm_count(x.device.index))
-        partial = (torch.empty((splits, M, N), device=x.device, dtype=torch.float32)
-                   if splits > 1 else out)
-        err = lib.qgemm_int4(xf.data_ptr(), w.data_ptr(), scales.data_ptr(), partial.data_ptr(),
-                             out.data_ptr(), M, K, N, m_tile, tile_n, splits, per, stream)
-    else:
-        err = lib.qgemm_int8(xf.data_ptr(), w.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                             M, K, N, stream)
+    partial = (torch.empty((splits, M, N), device=x.device, dtype=torch.float32)
+               if splits > 1 else out)
+    err = getattr(_ext.load(), name)(x.data_ptr(), x.dtype == torch.float32, w.data_ptr(),
+                                     scales.data_ptr(), partial.data_ptr(), out.data_ptr(), M, K,
+                                     N, m_tile, tile_n, splits, per, _ext.stream_ptr(x))
     _ext.check(name, err)
     return out
 
@@ -344,7 +350,7 @@ qgemm_int4.launches = 0
 def quantized_matmul(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """x [M, K] (or [K]) @ dequant(wq [K, N], scales [K/32, N]) -> f32.
     M == 1 takes the GEMV (x rounded to bf16, as on the TPU); M > 1 the
-    f32 GEMM."""
+    GEMM (f32 sums of x as given, bf16 or f32)."""
     if x.ndim == 1:
         return quantized_matmul(x[None], wq, scales)[0]
     if x.shape[0] == 1:
