@@ -33,6 +33,18 @@ Phases (any failure exits non-zero, before the final line):
   5. server: the port's server on cuda answers 3 /v1/audio/speech requests
      (2 sampled, 1 greedy) from the Q8_0 model, then 3 from the Q4_0 model;
      the launch counts of each run show which kernels served it
+  6. Kokoro-82M, which runs none of the five kernels: a tiny model's cuda
+     run against its CPU run (f32, cuDNN TF32 off, the same noise; stage by
+     stage, as the CPU tests hold port to JAX); then a
+     seeded random full-width Kokoro-82M GGUF under smoke_models/, served
+     through the port's server on cuda with torch's default math flags: the
+     ten Harvard sentences (a warm pass, then a timed one: wall, RTF,
+     frames, peak memory), one input past the 510-phoneme context (the
+     chunked path), time to first audio through generate_stream and as
+     the server's PCM stream, bf16
+     against f32 on one sentence, and one torch.profiler pass of a warm
+     request (device-busy share, top kernels); the five kernels' launch
+     counts must stay 0 over the served requests
 The line before the last is a JSON object of per-kernel results; the last is
 {"ok": true, "device": {...}}.  It imports only tts_tpu_torch, and fails if
 jax or any module of the JAX package tts_tpu was imported.
@@ -83,6 +95,30 @@ TINY = dict(n_layers=2, hidden=256, heads=4, kv_heads=2, head_dim=128, ffn=512, 
 QTYPES = ("Q8_0", "Q4_0")
 # per path: the kernels it must launch, and those it must not
 PATH_KERNELS = {"Q8_0": ("qgemv_int8", "qgemm_int8"), "Q4_0": ("qgemv_int4", "qgemm_int4")}
+# phase 6: Harvard sentences, list 1 (IEEE recommended practice, public
+# domain; bench.py's battery)
+HARVARD = (
+    "The birch canoe slid on the smooth planks.",
+    "Glue the sheet to the dark blue background.",
+    "It's easy to tell the depth of a well.",
+    "These days a chicken leg is a rare dish.",
+    "Rice is often served in round bowls.",
+    "The juice of lemons makes fine punch.",
+    "The box was thrown beside the parked truck.",
+    "The hogs were fed chopped corn and garbage.",
+    "Four hours of steady work faced us.",
+    "A large size in stockings is hard to sell.",
+)
+# the random model's duration head: sigmoid(-2.6) * 50 ~ 3.5 frames per token
+# (bench.py's calibration, ~11 characters of text per second of audio)
+KOKORO_DURATION_BIAS = -2.6
+# tiny Kokoro, cuda against cpu in f32 with TF32 off: the same f32 math in
+# another order (the CPU tests hold port and JAX to 1e-3 of the peak at the
+# decoder output, through a deep chain of instance norms)
+KOKORO_TINY_TOL = 1e-3
+# full width, bf16 frame-rate activations against f32 on the same noise and
+# durations: bf16 keeps 8 bits through ~100 convolutions and norms
+KOKORO_BF16_MIN_CORR = 0.95
 # phase 5's requests to each model: (kind, /v1/audio/speech payload)
 REQUESTS = (
     ("sampled", {"input": "Hello from the port, this is a first test.", "voice": "zoe",
@@ -596,6 +632,352 @@ def server(path: str, qtype: str) -> dict:
     return counts
 
 
+def kokoro_tiny_cuda_vs_cpu():
+    """KokoroDims.tiny() on cuda against the CPU (the plain PyTorch path the
+    CPU tests hold to the JAX package), f32 with cuDNN's TF32 off, the same
+    source noise, checked as the CPU tests check port against JAX:
+    durations equal up to sums within 1e-4 of x.5 (the CPU's then drive
+    both); the decoder's F0 curve and output within KOKORO_TINY_TOL of their
+    peaks; the harmonic spectrum's magnitude within it and its phase modulo
+    2 pi; the generator tail on one shared spectrum within it; a whole
+    request of equal length and finite.  A whole request's audio is not
+    compared: the spectrum's DC and Nyquist bins have an imaginary part of
+    +-0 or +-1e-7, so their phase (atan2) lands on +pi or -pi by the sign of
+    a rounding, and the noise convolutions read the phase as a number."""
+    import dataclasses
+
+    import torch
+
+    from tts_tpu_torch.convert.builder_kokoro import KokoroDims, write_kokoro_gguf
+    from tts_tpu_torch.models import kokoro as tk
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.ops.stft import stft
+
+    path = write_kokoro_gguf(os.path.join(MODEL_DIR, "tiny_kokoro_seed0.gguf"),
+                             KokoroDims.tiny(), seed=0, duration_bias=KOKORO_DURATION_BIAS)
+    models = {}
+    for dev in ("cpu", "cuda"):
+        m = runner_from_file(str(path), device=dev).model
+        m.cfg = dataclasses.replace(m.cfg, compute_dtype="float32")
+        models[dev] = m
+    tokens = [0] + [int(t) for t in np.random.default_rng(1).integers(1, 40, 30)] + [0]
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), torch.inference_mode():
+        for dev, m in models.items():
+            sg, sp = m.voice_style("af_heart", len(tokens))
+            tt = torch.tensor(tokens, device=m.device)
+            out[dev] = {"sums": tk.duration_raw(m.params, m.cfg, tt, sp)[0].cpu().numpy()}
+        sums = out["cpu"]["sums"]
+        dur = np.clip(np.round(sums), 1, 50)
+        tie = np.abs(sums - np.floor(sums) - 0.5) <= 1e-4
+        same = np.clip(np.round(out["cuda"]["sums"]), 1, 50) == dur
+        check(bool(same[~tie].all()), f"tiny Kokoro: durations differ cuda vs cpu at "
+              f"{np.nonzero(~same)[0].tolist()}")
+        n_frames = int(dur.sum())
+        noise = models["cpu"].source_noise(n_frames, seed=0)
+        shared = None
+        for dev, m in models.items():
+            sg, sp = m.voice_style("af_heart", len(tokens))
+            tt = torch.tensor(tokens, device=m.device)
+            d = torch.from_numpy(dur.astype(np.float32)).to(m.device)
+            _, hidden = tk.duration_raw(m.params, m.cfg, tt, sp)
+            f0, _, cur = tk.decode(m.params, m.cfg, tt, d, hidden, sg, sp, n_frames)
+            gen = m.params["decoder"]["generator"]
+            har = torch.tanh(tk._sine_source(m.cfg, f0, noise.to(m.device)) @ gen["m_source_w"]
+                             + gen["m_source_b"])[:, 0]
+            mag, phase = stft(har, m.window, m.cfg.n_fft, m.cfg.hop)
+            if shared is None:
+                shared = torch.cat([mag, phase], dim=-1).cpu()
+            tail = tk.generator_tail(gen, m.cfg, cur, shared.to(m.device), sg, m.window,
+                                     n_frames * m.cfg.up_sampling_factor)
+            audio = m.synthesize(tokens, "af_heart", noise=noise, durations=dur)
+            out[dev].update({k: v.cpu().numpy() for k, v in (
+                ("f0", f0), ("cur", cur), ("mag", mag), ("phase", phase), ("tail", tail))},
+                audio=audio)
+    a, b = out["cuda"], out["cpu"]
+    rel = {k: float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max())
+           for k in ("f0", "cur", "mag", "tail")}
+    wrapped = float(np.abs((a["phase"] - b["phase"] + np.pi) % (2 * np.pi) - np.pi).max())
+    flips = int((np.abs(a["phase"] - b["phase"]) > np.pi).sum())
+    whole = float(np.abs(a["audio"] - b["audio"]).max() / np.abs(b["audio"]).max())
+    print(f"tiny Kokoro cuda vs cpu (f32, TF32 off): {len(tokens)} tokens, durations equal on "
+          f"{int(same.sum())}/{len(tokens)} ({int(tie.sum())} ties; sums max diff "
+          f"{np.abs(a['sums'] - b['sums']).max():.2e}), {n_frames} frames; max diff / peak: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tol {KOKORO_TINY_TOL:.0e}); spectrum phase mod 2 pi {wrapped:.2e} (tol 1e-3), "
+          f"{flips} of {a['phase'].size} phases on the other side of +-pi; whole request "
+          f"{whole:.2e} of peak (not compared)")
+    for k, v in rel.items():
+        check(v <= KOKORO_TINY_TOL, f"tiny Kokoro: cuda vs cpu {k} {v:.2e} of peak > "
+              f"{KOKORO_TINY_TOL}")
+    check(wrapped < 1e-3, f"tiny Kokoro: spectrum phase differs by {wrapped} mod 2 pi")
+    check(a["audio"].shape == b["audio"].shape == (n_frames * 600,), "tiny Kokoro: lengths")
+    check(bool(np.isfinite(a["audio"]).all()), "tiny Kokoro: non-finite audio on cuda")
+
+
+def _kokoro_frames(model, chunks) -> list[int]:
+    """Each chunk's frame count as the duration predictor gives it, computed
+    apart from the request that synthesized it."""
+    import torch
+
+    from tts_tpu_torch.models import kokoro as tk
+
+    frames = []
+    with torch.inference_mode():
+        for tokens in chunks:
+            _, style = model.voice_style("af_heart", len(tokens))
+            dur, _ = tk.duration_forward(model.params, model.cfg,
+                                         torch.tensor(tokens, device=model.device), style)
+            frames.append(int(dur.sum().item()))
+    return frames
+
+
+def _profile_request(runner, text) -> dict:
+    """One warm request under torch.profiler: the time during which some
+    kernel ran on the device (kernel intervals merged), as a share of the
+    profiled wall and of the same request's wall unprofiled just before
+    (the median of three; the profiler's own cost lengthens the first), and
+    the ten kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = os.path.join(MODEL_DIR, "kokoro_profile.json")
+    cfg = _kokoro_config()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        runner.generate(text, cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = sorted(walls)[1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        resp = runner.generate(text, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    check(len(kernels) > 0, "torch.profiler recorded no device kernel")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in kernels:
+        n, t = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, t + float(e["dur"]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    first = spans[0][0]
+    return {"request": text, "wall_ms": wall_ms, "unprofiled_wall_ms": plain_ms,
+            "audio_s": resp.duration_s, "device_kernels": len(kernels),
+            "device_busy_ms": busy / 1e3, "device_busy_share": busy / 1e3 / wall_ms,
+            "device_busy_share_of_unprofiled_wall": busy / 1e3 / plain_ms,
+            "first_to_last_kernel_ms": (end - first) / 1e3,
+            "top_kernels": [{"name": n[:120], "calls": c, "device_ms": t / 1e3}
+                            for n, (c, t) in top]}
+
+
+def _kokoro_config():
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    return GenerationConfig(voice="af_heart", seed=0)
+
+
+def kokoro() -> dict:
+    """Phase 6; returns the five kernels' launch counts over the Kokoro
+    requests, every counter set to 0 just before them."""
+    phase("6 Kokoro-82M")
+    import dataclasses
+
+    import torch
+
+    from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
+    from tts_tpu_torch.convert.builder_kokoro import KokoroDims, write_kokoro_gguf
+
+    kokoro_tiny_cuda_vs_cpu()
+    # the library's users run with torch's defaults; phases 3-4 turned TF32 off
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = os.path.join(MODEL_DIR, "kokoro82m_seed0.gguf")
+    t0 = time.perf_counter()
+    write_kokoro_gguf(path, KokoroDims.kokoro_82m(), seed=0, duration_bias=KOKORO_DURATION_BIAS)
+    print(f"wrote {os.path.relpath(path, ROOT)}: {os.path.getsize(path) / 1e6:.1f} MB in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    state = ServerState({"kokoro82m": path}, _kokoro_config(), 1, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    runner, _ = state._get_runner("kokoro82m")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model = runner.model
+    n_params = sum(t.numel() for t in _tensors(model.params))
+    print(f"model load: {load_s:.2f} s, {n_params / 1e6:.1f} M params on {model.device}, "
+          f"memory_allocated {torch.cuda.memory_allocated() / 2**20 - base_mib:.0f} MiB over "
+          f"the {base_mib:.0f} MiB left by the earlier phases, compute_dtype "
+          f"{model.cfg.compute_dtype}")
+
+    chunks, responses = [], []
+    synthesize, generate = model.synthesize, runner.generate
+
+    def recording_synthesize(token_ids, voice, seed=0, **kw):
+        chunks.append(list(token_ids))
+        return synthesize(token_ids, voice, seed=seed, **kw)
+
+    def recording_generate(text, config=None):
+        resp = generate(text, config)
+        responses.append(resp)
+        return resp
+
+    model.synthesize, runner.generate = recording_synthesize, recording_generate
+    srv = make_server(state, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    counters = launch_counters()
+
+    def request(text, label):
+        """One /v1/audio/speech request; checks the WAV against the audio
+        and the frames the duration predictor gives its chunks."""
+        del chunks[:], responses[:]
+        t = time.perf_counter()
+        status, body, ctype = _post(port, {"input": text, "voice": "af_heart", "seed": 0})
+        wall = time.perf_counter() - t
+        check(status == 200 and ctype == "audio/wav", f"{label}: HTTP {status} {ctype}: "
+              f"{body[:200]!r}")
+        with wave.open(io.BytesIO(body)) as wf:
+            n = wf.getnframes()
+            check(wf.getframerate() == 24000, f"{label}: rate {wf.getframerate()}")
+        resp = responses[-1]
+        frames = _kokoro_frames(model, chunks)
+        check(n > 0 and n == len(resp.audio), f"{label}: wav {n} samples, audio "
+              f"{len(resp.audio)}")
+        check(n == 600 * sum(frames), f"{label}: {n} samples for {sum(frames)} frames "
+              f"({frames} over {len(chunks)} chunks)")
+        check(bool(np.isfinite(resp.audio).all()), f"{label}: non-finite audio")
+        check(float(np.abs(resp.audio).max()) > 0, f"{label}: silent audio")
+        return {"wall_ms": wall * 1e3, "audio_s": n / 24000, "rtf": wall / (n / 24000),
+                "frames": sum(frames), "chunks": len(chunks), "tokens": sum(map(len, chunks)),
+                "synthesize_ms": resp.timings["synthesize_ms"]}
+
+    try:
+        for kernel in counters.values():
+            kernel.launches = 0
+        t = time.perf_counter()
+        for i, text in enumerate(HARVARD):
+            request(text, f"warm {i + 1}")
+        print(f"warm pass (cuDNN picks its algorithms per new shape): 10 requests in "
+              f"{time.perf_counter() - t:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for i, text in enumerate(HARVARD):
+            r = request(text, f"harvard {i + 1}")
+            rows.append(r)
+            print(f"harvard {i + 1:2d}  wall {r['wall_ms']:7.1f} ms  synthesize "
+                  f"{r['synthesize_ms']:7.1f} ms  audio {r['audio_s']:.3f} s  RTF "
+                  f"{r['rtf']:.4f}  {r['tokens']} tokens  {r['frames']} frames")
+        rtfs = sorted(r["rtf"] for r in rows)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20 - base_mib
+        summary = {"p50_rtf": float(np.median(rtfs)), "max_rtf": rtfs[-1],
+                   "mean_wall_ms": float(np.mean([r["wall_ms"] for r in rows])),
+                   "audio_s": sum(r["audio_s"] for r in rows), "load_s": load_s,
+                   "max_memory_allocated_mib": peak_mib}
+        print(f"Harvard pass: p50 RTF {summary['p50_rtf']:.4f}, max RTF {rtfs[-1]:.4f}, "
+              f"{summary['audio_s']:.2f} s of audio, max_memory_allocated {peak_mib:.0f} MiB over "
+              f"the earlier phases' {base_mib:.0f} MiB (weights and activations)")
+
+        long_text = " ".join(HARVARD * 2)
+        phonemes = runner.phonemizer.text_to_phonemes(long_text)
+        check(len(phonemes) >= model.cfg.max_context_length - 2,
+              f"long input: {len(phonemes)} phonemes fit one chunk")
+        r = request(long_text, "long")
+        check(r["chunks"] > 1, f"long input: {r['chunks']} chunk")
+        summary["long"] = r
+        print(f"long input: {len(phonemes)} phonemes -> {r['chunks']} chunks, {r['frames']} "
+              f"frames (the chunks' sum), wall {r['wall_ms']:.1f} ms, RTF {r['rtf']:.4f}")
+
+        ttfa = []
+        for _ in range(3):
+            del chunks[:]
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/audio/speech",
+                data=json.dumps({"input": HARVARD[0], "voice": "af_heart", "seed": 0,
+                                 "response_format": "pcm"}).encode(),
+                headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=900) as resp:
+                first = resp.read(2)
+                ttfa.append((time.perf_counter() - t) * 1e3)
+                n = (len(first) + len(resp.read())) // 2
+            frames = _kokoro_frames(model, chunks)
+            check(n == 600 * sum(frames), f"pcm stream: {n} samples for {frames} frames")
+        summary["ttfa_http_ms"] = sorted(ttfa)[1]
+        print(f"pcm stream through the server (generate_stream): time to its first bytes "
+              f"{summary['ttfa_http_ms']:.1f} ms (median of 3), {len(chunks)} chunks, "
+              f"{n / 24000:.3f} s of audio")
+    finally:
+        counts = {k: c.launches for k, c in counters.items()}
+        model.synthesize, runner.generate = synthesize, generate
+        srv.shutdown()
+        srv.server_close()
+        stop_workers(state)
+    print(f"launches over the Kokoro requests: {counts}")
+    check(not any(counts.values()), f"the Kokoro path launched {counts}")
+
+    ttfa = []
+    for _ in range(3):
+        t = time.perf_counter()
+        stream = runner.generate_stream(HARVARD[0], _kokoro_config())
+        first = next(stream)
+        ttfa.append((time.perf_counter() - t) * 1e3)
+        rest = list(stream)
+        check(len(first) > 0 and bool(np.isfinite(first).all()), "stream: first chunk")
+    summary["ttfa_ms"] = sorted(ttfa)[1]
+    print(f"generate_stream TTFA (median of 3): {summary['ttfa_ms']:.1f} ms, first chunk "
+          f"{len(first) / 24000:.3f} s of audio, {1 + len(rest)} chunks")
+
+    tokens = [0] + runner.tokenizer.tokenize(runner.phonemizer.text_to_phonemes(
+        HARVARD[1]).replace(".", "").strip()) + [0]
+    dur = _kokoro_frames(model, [tokens])[0]
+    noise = model.source_noise(dur, seed=0)
+    audio = {}
+    for dtype in ("bfloat16", "float32"):
+        model.cfg = dataclasses.replace(model.cfg, compute_dtype=dtype)
+        audio[dtype] = model.synthesize(tokens, "af_heart", noise=noise)
+    model.cfg = dataclasses.replace(model.cfg, compute_dtype="bfloat16")
+    a, b = audio["bfloat16"].astype(np.float64), audio["float32"].astype(np.float64)
+    rel_l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    corr = float(np.corrcoef(a, b)[0, 1])
+    summary["bf16_vs_f32"] = {"rel_l2": rel_l2, "corr": corr}
+    print(f"bf16 vs f32 (full width, same noise): rel L2 {rel_l2:.3e}, correlation {corr:.6f} "
+          f"(floor {KOKORO_BF16_MIN_CORR}), peak |audio| {np.abs(b).max():.3e} (random weights: "
+          f"the generator's exp(magnitude) is unbounded)")
+    check(bool(np.isfinite(a).all() and np.isfinite(b).all()), "bf16 vs f32: non-finite audio")
+    check(corr >= KOKORO_BF16_MIN_CORR, f"bf16 vs f32: correlation {corr} < "
+          f"{KOKORO_BF16_MIN_CORR}")
+
+    prof = _profile_request(runner, HARVARD[0])
+    print(json.dumps({"kokoro_profile": prof}))
+    summary["device_busy_share"] = prof["device_busy_share"]
+    summary["device_busy_share_of_unprofiled_wall"] = prof["device_busy_share_of_unprofiled_wall"]
+    print(json.dumps({"kokoro": summary}))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return counts
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
 def main() -> int:
     card = environment()
     import torch
@@ -604,6 +986,7 @@ def main() -> int:
     results = kernels()
     paths = model()
     counts = {qtype: server(paths[qtype], qtype) for qtype in QTYPES}
+    counts["kokoro"] = kokoro()
     for r in results:
         path = next((q for q, ks in PATH_KERNELS.items() if r["name"] in ks), QTYPES[0])
         r["launches"] = counts[path][r["name"]]

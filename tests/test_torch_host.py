@@ -1,8 +1,12 @@
 """The port's own host-side modules against their JAX-package counterparts:
-the GGUF reader and writer (tts_tpu_torch.core), the BPE tokenizer, the WAV
-and AIFF encoders, and the speech server, each given the same inputs."""
+the GGUF reader and writer (tts_tpu_torch.core), the BPE and single-pass
+tokenizers, Kokoro's phonemizer, espeak binding and GGUF builder, the WAV
+and AIFF encoders, and the speech server (on test:dummy and on a tiny
+Kokoro), each given the same inputs."""
 
+import ctypes.util
 import json
+import random
 import threading
 import urllib.error
 import urllib.request
@@ -13,15 +17,23 @@ import pytest
 pytest.importorskip("jax")  # the reference; absent where only the port runs
 
 from tts_tpu.apps import server as jserver  # noqa: E402
+from tts_tpu.convert import builder_kokoro as jbuilder  # noqa: E402
 from tts_tpu.core import gguf as jgguf  # noqa: E402
 from tts_tpu.runtime.api import GenerationConfig as JaxGenerationConfig  # noqa: E402
+from tts_tpu.runtime.api import TTSError as JaxTTSError  # noqa: E402
+from tts_tpu.text import espeak as jespeak  # noqa: E402
+from tts_tpu.text import phonemizer as jphonemizer  # noqa: E402
 from tts_tpu.text.tokenizers import BPETokenizer as JaxBPETokenizer  # noqa: E402
+from tts_tpu.text.tokenizers import SinglePassTokenizer as JaxSinglePassTokenizer  # noqa: E402
 from tts_tpu.utils import audio as jaudio  # noqa: E402
 from tts_tpu_torch.apps import server as tserver  # noqa: E402
+from tts_tpu_torch.convert import builder_kokoro as tbuilder  # noqa: E402
 from tts_tpu_torch.convert.builder_orpheus import orpheus_kv  # noqa: E402
 from tts_tpu_torch.core import gguf as tgguf  # noqa: E402
-from tts_tpu_torch.runtime.api import GenerationConfig  # noqa: E402
-from tts_tpu_torch.text.tokenizers import BPETokenizer  # noqa: E402
+from tts_tpu_torch.runtime.api import GenerationConfig, TTSError  # noqa: E402
+from tts_tpu_torch.text import espeak as tespeak  # noqa: E402
+from tts_tpu_torch.text import phonemizer as tphonemizer  # noqa: E402
+from tts_tpu_torch.text.tokenizers import BPETokenizer, SinglePassTokenizer  # noqa: E402
 from tts_tpu_torch.utils import audio as taudio  # noqa: E402
 
 TENSOR_TYPES = ["F32", "F16", "BF16", "Q8_0", "Q5_0", "Q4_0"]
@@ -155,3 +167,127 @@ def test_server_answers_as_jax_server(servers, method, path, payload):
         assert json.loads(got[2]) == json.loads(want[2])
     else:
         assert got[2] == want[2]
+
+
+# --------------------------------------------------------------- Kokoro ---
+
+def _fuzz(n, seed=0):
+    """Seeded random strings over letters, digits, punctuation, accents,
+    IPA and symbols (as tests/test_phonemizer.py's fuzz test draws)."""
+    rng = random.Random(seed)
+    alphabet = ("abc XYZ 0123456789 .,!?;:'\"-()[]{} $%&*+<>= \t\n"
+                "éüñ ʃʒθð ... -- '' ½¾ MCMXCIV I.B.M. o'clock 1,234.56")
+    return ["".join(rng.choice(alphabet) for _ in range(rng.randint(0, 40))) for _ in range(n)]
+
+
+PHONEMIZER_TEXTS = [
+    "The birch canoe slid on the smooth planks.", "It's easy to tell the depth of a well.",
+    "Four hours of steady work faced us.", "hello, world!", "the cat 42", "3.14", "32,000",
+    "1,000,000,000,000,001", "the HTML", "U.S.", "HELLO WORLD", "chapter XIV", "dog's",
+    "boss's tree's", "they're", "cat + dog", "twenty-one", "café naïve", "dr. who", "",
+    "   ", "-5 1-2 .3 3.",
+] + _fuzz(8)
+
+
+def _phonemizers(module):
+    """A phonemizer from the tiny Kokoro GGUF's tables, and one with a
+    richer dictionary and per-letter rules (tests/test_phonemizer.py's)."""
+    _, kv = jbuilder.build_kokoro_tensors(jbuilder.KokoroDims.tiny(), np.random.default_rng(0))
+    d = module.PhonemeDictionary()
+    for word, ph in (("hello", "həlˈoʊ"), ("world", "wˈɜːld"), ("the", "ðə"), ("cat", "kˈæt"),
+                     ("dog", "dˈɑːɡ"), ("they", "ðˈeɪ"), ("tree", "tɹˈiː"), ("boss", "bˈɑːs"),
+                     ("twenty", "twˈɛnti"), ("one", "wˈʌn"), ("dr", "dˈɑːktɚ:.")):
+        d.add(word, ph)
+    wp = module.WordPhonemizer(module.SinglePassTokenizer(list("abcdefghijklmnopqrstuvwxyz")))
+    for ch in "abcdefghijklmnopqrstuvwxyz":
+        wp.add_rule([ch], ch.upper())
+    return module.Phonemizer.from_gguf_kv(kv), module.Phonemizer(d, wp)
+
+
+@pytest.mark.parametrize("text", PHONEMIZER_TEXTS, ids=range(len(PHONEMIZER_TEXTS)))
+def test_phonemizer_gives_jax_phonemes(text):
+    for got, want in zip(_phonemizers(tphonemizer), _phonemizers(jphonemizer)):
+        assert got.text_to_phonemes(text) == want.text_to_phonemes(text)
+
+
+@pytest.mark.parametrize("text", ["hɛlo wɝld", "ðə kˈæt", "naïve 🎉 ab", "", "abcabc  x"])
+def test_single_pass_tokenizer_gives_jax_ids(text):
+    """Kokoro's char vocabulary (shortest match, unknown bytes -> 0) and the
+    phonemizer's graphemes (longest match)."""
+    vocab = ["", "a", "b", "ab", "abc", " ", "ð", "ə", "ˈ", "æ", "k", "t", "ɛ", "🎉", "x"]
+    got, want = SinglePassTokenizer(vocab), JaxSinglePassTokenizer(vocab)
+    assert got.tokenize(text) == want.tokenize(text)
+    assert got.token_split(text) == want.token_split(text)
+
+
+@pytest.mark.parametrize("bias", [None, -2.6])
+def test_kokoro_builder_is_byte_identical(tmp_path, bias):
+    dims = jbuilder.KokoroDims.tiny()
+    want = jbuilder.write_kokoro_gguf(tmp_path / "jax.gguf", dims, seed=3, duration_bias=bias)
+    got = tbuilder.write_kokoro_gguf(tmp_path / "port.gguf", dims, seed=3, duration_bias=bias)
+    assert got.read_bytes() == want.read_bytes()
+    assert tbuilder.KokoroDims.kokoro_82m() == tbuilder.KokoroDims()
+
+
+def test_espeak_raises_tts_error_without_the_library(monkeypatch):
+    """Only the missing-library path can be tested: libespeak-ng is not
+    installed where these tests run, nor (as far as is known) on the card's
+    machine.  find_library is stubbed so the test means the same anywhere."""
+    monkeypatch.setattr(ctypes.util, "find_library", lambda name: None)
+    for module in (tespeak, jespeak):
+        monkeypatch.setattr(module, "_lib", None)
+    assert not tespeak.available() and not jespeak.available()
+    with pytest.raises(JaxTTSError) as want:
+        jespeak.espeak_text_to_phonemes("hello")
+    with pytest.raises(TTSError) as got:
+        tespeak.espeak_text_to_phonemes("hello")
+    assert str(got.value) == str(want.value)
+    ph = tphonemizer.Phonemizer.from_gguf_kv({"phonemizer.type": 1}, espeak_voice="gmw/en")
+    assert ph.mode == "espeak"
+    with pytest.raises(TTSError, match="espeak-ng is not installed"):
+        ph.text_to_phonemes("hello")
+
+
+@pytest.fixture(scope="module")
+def kokoro_servers(tmp_path_factory):
+    """Both packages' servers on one tiny Kokoro GGUF (the port's on the
+    CPU); yields {"jax": port, "port": port}."""
+    path = str(jbuilder.write_kokoro_gguf(tmp_path_factory.mktemp("kokoro") / "k.gguf",
+                                          jbuilder.KokoroDims.tiny(), seed=0,
+                                          duration_bias=-2.6))
+    jstate = jserver.ServerState({"kokoro": path}, JaxGenerationConfig(), 1)
+    tstate = tserver.ServerState({"kokoro": path}, GenerationConfig(), 1, device="cpu")
+    srvs = {"jax": jserver.ThreadingHTTPServer(("127.0.0.1", 0), jserver.make_handler(jstate)),
+            "port": tserver.make_server(tstate, port=0)}
+    for srv in srvs.values():
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    yield {k: srv.server_address[1] for k, srv in srvs.items()}
+    for srv in srvs.values():
+        srv.shutdown()
+        srv.server_close()
+    tserver.stop_workers(tstate)
+
+
+@pytest.mark.parametrize("method,path,payload", [
+    ("POST", "/v1/audio/speech", {"input": "hello world", "voice": "af_heart", "seed": 1}),
+    ("POST", "/v1/audio/speech", {"input": "hello world. and a second clause", "seed": 1,
+                                  "response_format": "pcm"}),
+    ("POST", "/v1/audio/speech", {"input": "hello world", "voice": "nope"}),
+    ("GET", "/v1/audio/voices", None),
+    ("GET", "/v1/models", None),
+], ids=lambda v: json.dumps(v) if isinstance(v, dict) else None)
+def test_server_answers_kokoro_as_jax_server(kokoro_servers, method, path, payload):
+    """Status, content type and JSON agree; a WAV agrees in its header (rate,
+    width, length), a PCM stream (generate_stream's chunks) in its length,
+    and neither is silent.  The samples differ: JAX quantizes against the
+    peak of a bucketed bf16 run, the port runs exact shapes
+    (tests/test_torch_kokoro.py compares the audio in f32)."""
+    got = _call(kokoro_servers["port"], method, path, payload)
+    want = _call(kokoro_servers["jax"], method, path, payload)
+    assert got[:2] == want[:2]
+    if want[1] == "application/json":
+        assert json.loads(got[2]) == json.loads(want[2])
+        return
+    header = 44 if want[1] == "audio/wav" else 0
+    assert got[2][:header] == want[2][:header] and len(got[2]) == len(want[2]) > header
+    assert np.abs(np.frombuffer(got[2][header:], np.int16)).max() > 0

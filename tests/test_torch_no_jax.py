@@ -1,8 +1,9 @@
 """The port runs where neither JAX nor the JAX package can be imported: in a
 fresh interpreter whose import hook refuses `jax`, `jaxlib` and `tts_tpu`
 (and every submodule of them), import each module of tts_tpu_torch, serve
-test:dummy through the port's server, then write a tiny Q8_0 or Q4_0 model
-with the port's own builder, load it and synthesize on the CPU."""
+test:dummy through the port's server, then write a tiny Q8_0 or Q4_0
+Orpheus, or a tiny Kokoro, with the port's own builder, load it and
+synthesize on the CPU."""
 
 import os
 import subprocess
@@ -51,20 +52,27 @@ SCRIPT = textwrap.dedent("""
     print("WAV", r.status, len(wav))
 
     qtype = sys.argv[2]
-    path = write_random_orpheus(sys.argv[1], qtype=qtype, **TINY, vocab=156940,
-                                snac_embd=96, snac_channels=(48, 24, 12, 6))
-    r = runner_from_file(str(path), device="cpu")
-    r.cfg = dataclasses.replace(r.cfg, max_context_length=CTX, max_generation_size=GEN)
-    key = "wq4" if qtype == "Q4_0" else "wq"
-    assert key in r.params["layers"][0]["qkv"] and key in r.params["head"]
-    resp = r.generate("hi", GenerationConfig(seed=0, max_tokens=15, top_k=50))
+    if qtype == "kokoro":
+        from tts_tpu_torch.convert.builder_kokoro import KokoroDims, write_kokoro_gguf
+        path = write_kokoro_gguf(sys.argv[1], KokoroDims.tiny(), seed=0, duration_bias=-2.6)
+        r = runner_from_file(str(path), device="cpu")
+        assert r.architecture == "kokoro" and r.list_voices() == ["af_heart"]
+        resp = r.generate("hello world", GenerationConfig(voice="af_heart", seed=0))
+    else:
+        path = write_random_orpheus(sys.argv[1], qtype=qtype, **TINY, vocab=156940,
+                                    snac_embd=96, snac_channels=(48, 24, 12, 6))
+        r = runner_from_file(str(path), device="cpu")
+        r.cfg = dataclasses.replace(r.cfg, max_context_length=CTX, max_generation_size=GEN)
+        key = "wq4" if qtype == "Q4_0" else "wq"
+        assert key in r.params["layers"][0]["qkv"] and key in r.params["head"]
+        resp = r.generate("hi", GenerationConfig(seed=0, max_tokens=15, top_k=50))
     loaded = sorted(m for m, v in sys.modules.items()
                     if m.split(".")[0] in BLOCKED and v is not None)
     print("AUDIO", len(resp.audio), bool(np.isfinite(resp.audio).all()), "BLOCKED", loaded)
 """)
 
 
-@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0", "kokoro"])
 def test_port_runs_without_jax(tmp_path, qtype):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.path.join(ROOT, "tests"), os.environ.get("PYTHONPATH", "")]))
@@ -74,4 +82,8 @@ def test_port_runs_without_jax(tmp_path, qtype):
     lines = proc.stdout.splitlines()
     # test:dummy: 2 characters -> 2 s of 44.1 kHz 16-bit audio + a 44-byte header
     assert f"WAV 200 {44 + 2 * 44100 * 2}" in lines, lines
-    assert f"AUDIO {(15 // 7) * 4 * 512} True BLOCKED []" in lines, lines
+    # Orpheus: 15 tokens -> 2 frames of 4 * 512 samples; Kokoro: "hello
+    # world" -> bos, 11 phoneme ids, eos at 3 frames each (sigmoid(-2.6) * 50
+    # ~ 3.45 per token) of 600 samples
+    n = 13 * 3 * 600 if qtype == "kokoro" else (15 // 7) * 4 * 512
+    assert f"AUDIO {n} True BLOCKED []" in lines, lines

@@ -96,15 +96,23 @@ class ServerState:
             try:
                 runner, lock = self._get_runner(task["model"])
                 if task["kind"] == "tts_stream":
-                    # no runner of the port streams yet: the whole utterance
-                    # goes out as one chunk
+                    # a runner with generate_stream (Kokoro) sends each chunk
+                    # as it is made; the others send the whole utterance
+                    chunks, cancel = task["chunks"], task["cancel"]
                     try:
                         with lock:
-                            resp = runner.generate(task["prompt"], task["config"])
-                        task["chunks"].put(resp.audio)
+                            if hasattr(runner, "generate_stream"):
+                                for piece in runner.generate_stream(task["prompt"],
+                                                                    task["config"]):
+                                    if cancel.is_set():
+                                        break  # client gone / timed out
+                                    chunks.put(piece)
+                            else:
+                                chunks.put(runner.generate(task["prompt"],
+                                                           task["config"]).audio)
                         result = {"success": True}
                     finally:
-                        task["chunks"].put(None)          # end-of-stream sentinel
+                        chunks.put(None)          # end-of-stream sentinel
                 elif task["kind"] == "tts":
                     with lock:
                         resp = runner.generate(task["prompt"], task["config"])
@@ -271,11 +279,15 @@ def make_handler(state: ServerState):
                   f"timings={result.get('timings')}", file=sys.stderr)
 
         def stream_pcm(self, model: str, prompt: str, cfg: GenerationConfig):
-            """Chunked-transfer stream of 16-bit little-endian PCM."""
+            """Chunked-transfer stream of 16-bit little-endian PCM; the first
+            chunk arrives at time-to-first-audio.  `cancel` stops the
+            worker's generation if the client goes or a chunk times out."""
             chunks: queue.Queue = queue.Queue()
+            cancel = threading.Event()
             t_req = time.perf_counter()
             state.tasks.put({"id": uuid.uuid4().hex, "kind": "tts_stream", "model": model,
-                             "prompt": prompt, "config": cfg, "chunks": chunks})
+                             "prompt": prompt, "config": cfg, "chunks": chunks,
+                             "cancel": cancel})
             self.send_response(200)
             self.send_header("Content-Type", "audio/pcm")
             self.send_header("Transfer-Encoding", "chunked")
@@ -304,6 +316,9 @@ def make_handler(state: ServerState):
                     self.wfile.write(b"0\r\n\r\n")
             except (BrokenPipeError, ConnectionResetError, OSError):
                 status = "client disconnected"
+            finally:
+                if status != "done":
+                    cancel.set()
             wall = time.perf_counter() - t_req
             print(f"[srv] stream {status}: ttfa={ttfa_ms and round(ttfa_ms, 1)} ms "
                   f"samples={n_samples} wall={wall * 1e3:.1f} ms", file=sys.stderr)

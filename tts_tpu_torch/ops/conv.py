@@ -27,3 +27,9 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = 
                              padding=padding, output_padding=output_padding,
                              groups=groups, dilation=dilation)
     return out[0].t()
+
+
+def reflect_pad_front(x: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """Reflect-pad n steps in front of [T, C] (rows n..1 before row 0), as
+    the Kokoro generator does after its last upsample."""
+    return torch.cat([x[1:n + 1].flip(0), x], dim=0)
