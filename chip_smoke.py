@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of tts_tpu_torch on one CUDA card: the quickest proof that the
 port builds, that its kernels agree with their plain versions, and that its
-server answers requests from full-width Orpheus-3B models with Q8_0 and with
-Q4_0 linears.
+server answers requests from full-width Orpheus-3B and Parler-TTS mini v1
+models with Q8_0 and with Q4_0 linears, and from Kokoro-82M.
 
     python3 chip_smoke.py
 
@@ -15,8 +15,12 @@ Phases (any failure exits non-zero, before the final line):
      device times (CUDA graphs replayed plain, kernel, [library, library,]
      kernel, plain), achieved GB/s, and each call's bound: the larger of its
      bytes over 3.35 TB/s and its operations over 989 TFLOP/s.  Every
-     product runs on bf16 x, as the layers pass it; the lm_head GEMVs also
-     on f32 x, as the head passes it, and the GEMMs on f32 x at one shape.
+     Orpheus product runs on bf16 x, as its layers pass it; the lm_head
+     GEMVs also on f32 x, as the head passes it, and the GEMMs on f32 x at
+     one shape.  Then Parler-TTS mini v1's shapes on f32 x, as its layers
+     pass it: the GEMVs at (K, N) = (1024, 1024), (1024, 4096), (4096,
+     1024), the GEMMs there at M = 8 (the verify window), phase 7's prompt
+     lengths and its encoding lengths (the cross-KV).
      The library call, where one computes the same function:
      scaled_dot_product_attention for bf16 flash-decode,
      torch._weight_int4pack_mm for the int4 products.  The GEMVs and GEMMs
@@ -45,7 +49,21 @@ Phases (any failure exits non-zero, before the final line):
      against f32 on one sentence, and one torch.profiler pass of a warm
      request (device-busy share, top kernels); the five kernels' launch
      counts must stay 0 over the served requests
-The line before the last is a JSON object of per-kernel results; the last is
+  7. Parler-TTS mini v1, which runs the four matmul kernels and not
+     flash_decode: tiny Q8_0 and Q4_0 models' CUDA forwards (8 GEMV steps,
+     one 8-row GEMM verify) and DAC against the CPU; then seeded random
+     full-width Q8_0 and Q4_0 GGUFs and a flan-t5-large-width T5 GGUF
+     under smoke_models/, each Parler served through the port's server
+     with torch's default math flags: a sampled request, a greedy one (the
+     speculative loop), a PCM stream (TTFA), a /v1/audio/conditional-prompt
+     call and a sampled request on the new encoding, 256 rows each (wall,
+     rows/s, RTF, load s, peak memory); the launch counts must show the
+     int8 pair alone on Q8_0 and the int4 pair alone on Q4_0, 192 GEMVs per
+     sequential row, flash_decode 0; then the greedy bracket: speculative,
+     force_miss and sequential rows/s after one prefill, and where the rows
+     part
+The line before the last is a JSON object of per-kernel results (each
+kernel's launches on its Orpheus path, and by path); the last is
 {"ok": true, "device": {...}}.  It imports only tts_tpu_torch, and fails if
 jax or any module of the JAX package tts_tpu was imported.
 """
@@ -119,6 +137,25 @@ KOKORO_TINY_TOL = 1e-3
 # full width, bf16 frame-rate activations against f32 on the same noise and
 # durations: bf16 keeps 8 bits through ~100 convolutions and norms
 KOKORO_BF16_MIN_CORR = 0.95
+# phase 7, Parler-TTS mini v1 (tts_tpu/models/parler.py ParlerConfig
+# defaults): its linears' (K, N) (q/k/v/o and the cross-attention's at
+# hidden 1024 with a 1024-wide encoding, fc1, fc2), 8 of them per layer
+PARLER_SHAPES = {"attn": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
+PARLER_LAYERS, PARLER_LINEARS = 24, 8
+PARLER_MAX_TOKENS = 256            # rows per request: random heads never stop
+PARLER_PROFILE_ROWS = 48           # rows of the sampled request profiled
+PARLER_TEXTS = ("Hello from Parler on the card.", "A greedy request on the speculative path.",
+                "And a streamed one, sent as it is made.")
+# the voice description sent to /v1/audio/conditional-prompt (Parler-TTS's
+# own example description)
+PARLER_DESCRIPTION = ("A female speaker delivers a slightly expressive and animated speech "
+                      "with a moderate speed and pitch. The recording is of very high quality.")
+# the tiny model of phase 7's cuda-against-cpu check (tests/torch_tiny.py's
+# widths), with a tiny DAC
+PARLER_TINY = dict(n_layers=2, hidden=256, heads=4, ffn=512, prompt_vocab=64, enc_len=12,
+                   enc_hidden=64, max_ctx=512, max_gen=64)
+PARLER_TINY_DAC = dict(latent=96, decoder_dim=48, channels=(48, 24, 12, 6))
+DAC_TOL = 1e-4                     # DAC audio, cuda against cpu, f32 with TF32 off
 # phase 5's requests to each model: (kind, /v1/audio/speech payload)
 REQUESTS = (
     ("sampled", {"input": "Hello from the port, this is a first test.", "voice": "zoe",
@@ -246,6 +283,18 @@ def prompt_lengths() -> list[int]:
     return lengths
 
 
+def parler_gemm_lengths() -> list[int]:
+    """The M of phase 7's Parler GEMMs: the verify window (8), each
+    request's prompt (the random model's tokenizer, plus EOS), the GGUF's
+    encoding and the T5 encoding of PARLER_DESCRIPTION (the cross-KV)."""
+    from tts_tpu_torch.convert.builder_parler import PARLER_MINI_V1, unigram_kv
+    from tts_tpu_torch.text.tokenizers import UnigramTokenizer
+
+    tok = UnigramTokenizer.from_gguf_kv(unigram_kv(PARLER_MINI_V1["prompt_vocab"]))
+    return sorted({8, PARLER_MINI_V1["enc_len"], len(tok.tokenize(PARLER_DESCRIPTION)) + 1,
+                   *(len(tok.tokenize(t)) + 1 for t in PARLER_TEXTS)})
+
+
 def int4_library_weight(wq4, scales):
     """The port's int4 layout as torch._weight_int4pack_mm takes it (a
     yardstick only; the port never calls it): u = q + 8 in 0..15, [N, K]
@@ -346,11 +395,62 @@ def kernels():
         check(torch.equal(call(), call()), f"{name} {label}: two calls differ")
         return {"ctas": math.prod(grids[0]), "device_kernels": len(acts)}
 
-    # M = 1: decode steps (bf16 x, as the layers pass it) and the lm_head
-    # (also f32 x, as _head_logits passes it); M > 1: the rest of prefill
-    # (bf16 x, as the layers pass it; f32 x at one shape, which runs the
-    # kernels' hi + lo products)
+    def measure(fn, plain, bits, label, K, N, M, x, ws, tol, iters, fill_sms):
+        """One row: the kernel against plain on x and the rotated weights
+        ws, its launch held to the plan, timed against plain (and, for
+        int4, the library call).  fill_sms: the GEMM must launch at least
+        one CTA per SM (the Orpheus prefill's shapes)."""
+        gemv = M == 1
+        want = plain(x, *ws[0])
+        a, r = rel_err(fn(x, *ws[0]), want)
+        fns = {"plain": lambda j: plain(x, *ws[j % len(ws)]),
+               "kernel": lambda j: fn(x, *ws[j % len(ws)])}
+        lr = int4_library(fns, x, ws, want, label) if bits == 4 else None
+        if gemv:
+            # one device kernel per call (no cast, no split-K pass), its
+            # grid (splits, column tiles) as planned: where the column tiles
+            # leave SMs free, one wave of at most one CTA per SM
+            tile_n, splits, _ = tq.gemv_plan(K, N, sms, bits == 4)
+            tiles = -(-N // tile_n)
+            launch = launch_grid(fn.__name__, "qgemv_kernel", label, lambda: fn(x, *ws[0]),
+                                 [splits, tiles, 1], 1)
+            check(tiles >= sms or launch["ctas"] <= sms, f"{fn.__name__} {label}: "
+                  f"{launch['ctas']} CTAs in {splits} splits > {sms} SMs")
+        else:
+            # the shared GEMM's grid (column tiles, M tiles, K splits), then
+            # the split-K pass when K splits, and no other device kernel
+            m_tile, tile_n, splits, _ = tq.gemm_plan(M, K, N, sms, bits == 4)
+            launch = launch_grid(fn.__name__, "qgemm_kernel", label, lambda: fn(x, *ws[0]),
+                                 [-(-N // tile_n), -(-M // m_tile), splits], 1 + (splits > 1))
+            check(not fill_sms or launch["ctas"] >= sms,
+                  f"{fn.__name__} {label}: {launch['ctas']} CTAs < {sms} SMs")
+        launch["splits"] = splits
+        t = timed(fns, {"plain": 3, "kernel": iters, "library": iters})
+        wbytes = K * N * bits // 8 + K // 32 * N * 2
+        out = row(f"{label} K={K} N={N}", a, r, t["kernel"], t["plain"],
+                  wbytes + M * K * x.element_size() + M * N * 4, 2 * M * K * N,
+                  t.get("library"), lr, **launch)
+        tflops = 2 * M * K * N / (t["kernel"] * 1e-3) / 1e12
+        gbs = wbytes / (t["kernel"] * 1e-3) / 1e9
+        lib = f"  library {t['library'] * 1e3:8.1f} us" if "library" in t else ""
+        lib_note = f"  (library rel_err {lr:.1e})" if lr is not None else ""
+        print(f"{fn.__name__} {label:29s} K={K:5d} N={N:6d}  rel_err {r:.2e} (tol {tol:.0e})  "
+              f"kernel {t['kernel'] * 1e3:8.1f} us  plain {t['plain'] * 1e3:9.1f} us{lib}  bound "
+              f"{out['bound_ms'] * 1e3:6.1f} us  {tflops:5.2f} TFLOP/s  "
+              f"{gbs:7.1f} GB/s = {gbs * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s  "
+              f"{launch['ctas']} CTAs ({splits} splits, {launch['device_kernels']} device "
+              f"kernels){lib_note}")
+        check(r < tol, f"{fn.__name__} {label}: rel err {r} >= {tol}")
+        return out
+
+    # M = 1: decode steps (bf16 x, as the Orpheus layers pass it) and the
+    # lm_head (also f32 x, as _head_logits passes it); M > 1: the rest of
+    # prefill (bf16 x; f32 x at one shape, which runs the kernels' hi + lo
+    # products).  Then Parler-TTS mini v1's shapes, on f32 x as its layers
+    # pass it: the GEMVs of a decode step, the GEMMs at the verify window,
+    # phase 7's prompt lengths and encoding lengths.
     gemm_ms = sorted(set(GEMM_M) | set(prompt_lengths()))
+    parler_ms = parler_gemm_lengths()
     for bits, fn, plain, tpu_line, ms_list, iters in (
             (8, tq.qgemv_int8, tq.qgemv_int8_plain, "tts_tpu/ops/qmatmul.py:144", (1,), 20),
             (4, tq.qgemv_int4, tq.qgemv_int4_plain, "tts_tpu/ops/qmatmul.py:367", (1,), 20),
@@ -366,55 +466,15 @@ def kernels():
                     "lm_head" if gemv else GEMM_F32_SHAPE)]
             for M, xdtype in runs:
                 x = torch.randn((M, K), device=dev).to(xdtype)
-                label = f"{name} M={M} x={str(xdtype)[6:]}"
-                want = plain(x, *ws[0])
-                a, r = rel_err(fn(x, *ws[0]), want)
-                fns = {"plain": lambda j: plain(x, *ws[j % len(ws)]),
-                       "kernel": lambda j: fn(x, *ws[j % len(ws)])}
-                lr = int4_library(fns, x, ws, want, label) if bits == 4 else None
-                launch = {}
-                if gemv:
-                    # one device kernel per call (no cast, no split-K pass),
-                    # its grid (splits, column tiles) as planned: where the
-                    # column tiles leave SMs free, one wave of at most one
-                    # CTA per SM
-                    tile_n, splits, _ = tq.gemv_plan(K, N, sms, bits == 4)
-                    tiles = -(-N // tile_n)
-                    launch = launch_grid(fn.__name__, "qgemv_kernel", label,
-                                         lambda: fn(x, *ws[0]), [splits, tiles, 1], 1)
-                    launch["splits"] = splits
-                    check(tiles >= sms or launch["ctas"] <= sms, f"{fn.__name__} {label}: "
-                          f"{launch['ctas']} CTAs in {splits} splits > {sms} SMs")
-                else:
-                    # the shared GEMM's grid (column tiles, M tiles, K
-                    # splits), then the split-K pass when K splits, and no
-                    # other device kernel (no cast of x)
-                    m_tile, tile_n, splits, _ = tq.gemm_plan(M, K, N, sms, bits == 4)
-                    launch = launch_grid(fn.__name__, "qgemm_kernel", label,
-                                         lambda: fn(x, *ws[0]),
-                                         [-(-N // tile_n), -(-M // m_tile), splits],
-                                         1 + (splits > 1))
-                    launch["splits"] = splits
-                    check(name == "lm_head" or launch["ctas"] >= sms,
-                          f"{fn.__name__} {label}: {launch['ctas']} CTAs < {sms} SMs")
-                t = timed(fns, {"plain": 3, "kernel": iters, "library": iters})
-                wbytes = K * N * bits // 8 + K // 32 * N * 2
-                rows.append(row(f"{label} K={K} N={N}", a, r, t["kernel"], t["plain"],
-                                wbytes + M * K * x.element_size() + M * N * 4, 2 * M * K * N,
-                                t.get("library"), lr, **launch))
-                tflops = 2 * M * K * N / (t["kernel"] * 1e-3) / 1e12
-                gbs = wbytes / (t["kernel"] * 1e-3) / 1e9
-                lib = f"  library {t['library'] * 1e3:8.1f} us" if "library" in t else ""
-                lib_note = f"  (library rel_err {lr:.1e})" if lr is not None else ""
-                grid = (f"  {launch['ctas']} CTAs ({launch['splits']} splits, "
-                        f"{launch['device_kernels']} device kernels)" if launch else "")
-                print(f"{fn.__name__} {label:22s} K={K:5d} N={N:6d}  rel_err {r:.2e} "
-                      f"(tol {tol:.0e})  kernel {t['kernel'] * 1e3:8.1f} us  plain "
-                      f"{t['plain'] * 1e3:9.1f} us{lib}  bound "
-                      f"{rows[-1]['bound_ms'] * 1e3:6.1f} us  {tflops:5.2f} TFLOP/s  "
-                      f"{gbs:7.1f} GB/s = {gbs * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s"
-                      f"{grid}{lib_note}")
-                check(r < tol, f"{fn.__name__} {label}: rel err {r} >= {tol}")
+                rows.append(measure(fn, plain, bits, f"{name} M={M} x={str(xdtype)[6:]}", K, N,
+                                    M, x, ws, tol, iters, name != "lm_head"))
+            del ws
+        for i, (name, (K, N)) in enumerate(PARLER_SHAPES.items()):
+            ws = rotating_weights(K, N, dev, 300 + 10 * (not gemv) + i + bits, int4=bits == 4)
+            for M in ((1,) if gemv else parler_ms):
+                x = torch.randn((M, K), device=dev)
+                rows.append(measure(fn, plain, bits, f"parler {name} M={M} x=float32", K, N, M,
+                                    x, ws, tol, iters, False))
             del ws
         record(fn.__name__, f"tts_tpu_torch/csrc/qmatmul{'4' if bits == 4 else ''}.cu",
                tpu_line, rows)
@@ -732,7 +792,7 @@ def _kokoro_frames(model, chunks) -> list[int]:
     return frames
 
 
-def _profile_request(runner, text) -> dict:
+def _profile_request(runner, text, cfg, name: str) -> dict:
     """One warm request under torch.profiler: the time during which some
     kernel ran on the device (kernel intervals merged), as a share of the
     profiled wall and of the same request's wall unprofiled just before
@@ -741,8 +801,7 @@ def _profile_request(runner, text) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    trace = os.path.join(MODEL_DIR, "kokoro_profile.json")
-    cfg = _kokoro_config()
+    trace = os.path.join(MODEL_DIR, f"{name}_profile.json")
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -961,12 +1020,340 @@ def kokoro() -> dict:
     check(corr >= KOKORO_BF16_MIN_CORR, f"bf16 vs f32: correlation {corr} < "
           f"{KOKORO_BF16_MIN_CORR}")
 
-    prof = _profile_request(runner, HARVARD[0])
+    prof = _profile_request(runner, HARVARD[0], _kokoro_config(), "kokoro")
     print(json.dumps({"kokoro_profile": prof}))
     summary["device_busy_share"] = prof["device_busy_share"]
     summary["device_busy_share_of_unprofiled_wall"] = prof["device_busy_share_of_unprofiled_wall"]
     print(json.dumps({"kokoro": summary}))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return counts
+
+
+def _staircase(cfg, rows):
+    """The sequential loop's input rows before each of `rows` [n, 9]."""
+    from tts_tpu_torch.models import parler as tp
+
+    tokens, eos, _ = tp.init_loop_state(cfg)
+    ins = []
+    for i, row in enumerate(rows):
+        ins.append(tokens)
+        eos = eos | (row == cfg.eos_token_id)
+        tokens = tp._next_row(cfg, row, eos, i + 1)
+    return np.stack(ins)
+
+
+def _parler_logits_along(r, ids, ins, widths):
+    """Logits [n, 9, vocab] of runner r teacher-forced along input rows
+    `ins` after the prompt's prefill, the forwards `widths` rows wide."""
+    import torch
+
+    from tts_tpu_torch.models import parler as tp
+
+    cache = tp.init_kv_cache(r.cfg, r.device)
+    out, i = [], 0
+    with torch.inference_mode():
+        tp.parler_prefill(r.params, r.cfg, torch.tensor(ids, device=r.device), cache, r.cross_kv)
+        for w in widths:
+            out.append(tp._rows_logits(r.params, r.cfg, torch.from_numpy(ins[i:i + w]).to(r.device),
+                                       len(ids) + i, cache, r.cross_kv))
+            i += w
+    return torch.cat(out).float()
+
+
+def parler_tiny_cuda_vs_cpu(qtype: str):
+    """A 2-layer hidden-256 Parler with `qtype` linears (every decoder linear
+    quantized, the cross-attention's too): the prompt prefill, 8
+    teacher-forced rows one per forward (the GEMVs) and 8 in one forward
+    (the verify's GEMMs), on cuda (kernels) against the CPU (plain
+    versions, which the CPU tests hold to the JAX package): logits within
+    TINY_TOL of max |logit|; its DAC on 24 random frames within DAC_TOL."""
+    import torch
+
+    from tts_tpu_torch.convert.builder_codecs import DAC_44KHZ
+    from tts_tpu_torch.convert.builder_parler import PARLER_MINI_V1, write_random_parler
+    from tts_tpu_torch.models.registry import runner_from_file
+
+    path = write_random_parler(os.path.join(MODEL_DIR, f"tiny_parler_{qtype.lower()}.gguf"),
+                               qtype=qtype, dac=dict(DAC_44KHZ, **PARLER_TINY_DAC),
+                               **dict(PARLER_MINI_V1, **PARLER_TINY))
+    rng = np.random.default_rng(1)
+    codes = rng.integers(0, 1024, (24, 9)).astype(np.int32)
+    forced = rng.integers(0, 1024, (16, 9)).astype(np.int32)
+    logits, audio = {}, {}
+    for dev in ("cuda", "cpu"):
+        r = runner_from_file(path, device=dev)
+        key = "wq4" if qtype == "Q4_0" else "wq"
+        check(key in r.params["layers"][0]["fc1"] and key in r.params["layers"][0]["ca_k"],
+              f"tiny Parler {qtype}: linears not packed as {key}")
+        ids = r.tokenizer.tokenize("hello world") + [r.tokenizer.eos_token]
+        logits[dev] = _parler_logits_along(r, ids, _staircase(r.cfg, forced), [1] * 8 + [8]).cpu()
+        audio[dev] = r.dac.decode(codes)
+    a, rel = rel_err(logits["cuda"], logits["cpu"])
+    same = (logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1)).float().mean().item()
+    dac = float(np.abs(audio["cuda"] - audio["cpu"]).max())
+    print(f"tiny Parler {qtype} cuda vs cpu: 16 rows x 9 heads of logits (8 GEMV steps, one "
+          f"8-row GEMM verify), max abs diff {a:.3e}, rel {rel:.2e} (tol {TINY_TOL:.0e}), argmax "
+          f"agrees on {same:.1%}; DAC on 24 frames max abs diff {dac:.2e} (tol {DAC_TOL:.0e})")
+    check(bool(torch.isfinite(logits["cuda"]).all()), f"tiny Parler {qtype}: non-finite logits")
+    check(rel < TINY_TOL, f"tiny Parler {qtype}: cuda vs cpu logits rel diff {rel} >= {TINY_TOL}")
+    check(audio["cuda"].shape == (24 * 512,) and dac < DAC_TOL,
+          f"tiny Parler {qtype}: DAC cuda vs cpu {dac} >= {DAC_TOL}")
+
+
+def parler_models() -> tuple[dict, str]:
+    """Seeded random full-width Parler-TTS mini v1 GGUFs, Q8_0 and Q4_0, and
+    a flan-t5-large-width T5 GGUF (F16), under smoke_models/."""
+    from tts_tpu_torch.convert.builder_parler import PARLER_MINI_V1, write_random_parler
+    from tts_tpu_torch.convert.builder_t5 import FLAN_T5_LARGE, write_t5_gguf
+
+    paths = {}
+    for qtype in QTYPES:
+        path = os.path.join(MODEL_DIR, f"parler_mini_v1_{qtype[:2].lower()}_seed0.gguf")
+        t0 = time.perf_counter()
+        write_random_parler(path, seed=0, qtype=qtype, **PARLER_MINI_V1)
+        print(f"wrote {os.path.relpath(path, ROOT)}: {os.path.getsize(path) / 1e9:.3f} GB in "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+        paths[qtype] = path
+    t5 = os.path.join(MODEL_DIR, "flan_t5_large_f16_seed0.gguf")
+    t0 = time.perf_counter()
+    write_t5_gguf(t5, seed=0, dtype=np.float16, **FLAN_T5_LARGE)
+    print(f"wrote {os.path.relpath(t5, ROOT)}: {os.path.getsize(t5) / 1e9:.3f} GB in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    return paths, t5
+
+
+def _first_part(a, b) -> int:
+    """The first row where two row arrays [n, 9] differ (n if none)."""
+    n = min(len(a), len(b))
+    diff = np.nonzero((a[:n] != b[:n]).any(axis=1))[0]
+    return int(diff[0]) if len(diff) else n
+
+
+def parler_bracket(runner, text: str) -> dict:
+    """Greedy rows/s of one 256-row request decoded three ways after the
+    same prefill: the speculative loop, its force_miss floor (every draft
+    rejected: one row per 8-row forward), and the sequential loop; the
+    first row where each parts from the sequential rows and, for the
+    speculative loop, the top-2 gap of the sequential path's logits there
+    (the tests hold the two equal up to near-ties).  Launches made here are
+    not counted for the path."""
+    import torch
+
+    from tts_tpu_torch.models import parler as tp
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    cfg = runner.cfg
+    ids = runner._prompt_ids(text)
+    config = GenerationConfig(sample=False, seed=0, max_tokens=PARLER_MAX_TOKENS)
+    rows, rates = {}, {}
+    for mode in ("spec", "force_miss", "sequential"):
+        with torch.inference_mode():
+            cross, _, state, limit = runner._prefill(ids, config)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "sequential":
+                got, _, _ = tp.parler_decode_loop(runner.params, cfg, len(ids), limit,
+                                                  runner._cache, cross, None, state,
+                                                  tp.init_loop_state(cfg), do_sample=False)
+            else:
+                out, loop, _ = tp.parler_decode_loop_spec_resume(
+                    runner.params, cfg, len(ids), limit, runner._cache, cross,
+                    tp.init_loop_state(cfg), runner._out_buffer(),
+                    force_miss=mode == "force_miss")
+                got = out[:loop[2]]
+            torch.cuda.synchronize()
+        rows[mode] = got
+        rates[mode] = len(got) / (time.perf_counter() - t0)
+    seq = rows["sequential"]
+    part = {m: _first_part(rows[m], seq) for m in ("spec", "force_miss")}
+    gap = None
+    if part["spec"] < len(seq):
+        r = part["spec"]
+        lg = _parler_logits_along(runner, ids, _staircase(cfg, seq[:r + 1]), [1] * (r + 1))[r]
+        heads = np.nonzero(rows["spec"][r] != seq[r])[0]
+        top2 = lg.topk(2, dim=-1).values
+        gap = float((top2[heads, 0] - top2[heads, 1]).min())
+    out = {"rows_per_s": rates,
+           "rows": len(seq), "first_part_from_sequential": part,
+           "spec_part_top2_gap": gap}
+    print(f"greedy bracket ({len(seq)} rows after a {len(ids)}-token prefill): "
+          + ", ".join(f"{m} {v:.1f} rows/s" for m, v in out["rows_per_s"].items())
+          + f"; rows equal to the sequential loop's up to row {part['spec']} (spec), "
+          f"{part['force_miss']} (force_miss)"
+          + (f"; top-2 gap at the spec part {gap:.2e}" if gap is not None else ""))
+    return out
+
+
+def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
+    """Serve one full-width Parler-TTS mini v1: a sampled request, a greedy
+    one (the speculative loop), a PCM stream, a conditional-prompt call
+    (T5 flan-t5-large width) and a sampled request on the new encoding,
+    each capped at PARLER_MAX_TOKENS rows; returns the launch counts of that
+    run (every counter set to 0 just before it) and its metrics."""
+    phase(f"7 server, Parler-TTS mini v1 {qtype}")
+    import torch
+
+    from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    name = f"parler_mini_v1_{qtype}"
+    state = ServerState({name: path}, GenerationConfig(top_k=50), 1, device="cuda")
+    t0 = time.perf_counter()
+    runner, _ = state._get_runner(name)
+    load_s = time.perf_counter() - t0
+    mib = 2**20
+    key = "wq4" if qtype == "Q4_0" else "wq"
+    check(all(key in runner.params["layers"][0][n] for n in ("sa_q", "ca_k", "fc1", "fc2")),
+          f"Parler {qtype}: linears not packed as {key}")
+    check(runner.cfg.kv_dtype == "bfloat16" and runner.params["heads"].dtype == torch.bfloat16,
+          f"Parler {qtype}: cache {runner.cfg.kv_dtype}, heads {runner.params['heads'].dtype}")
+    print(f"model load: {load_s:.2f} s  " + "  ".join(f"{k} {v:.2f}" for k, v in
+                                                     runner.load_timings.items())
+          + f"; memory_allocated {(torch.cuda.memory_allocated() - base) / mib:.0f} MiB")
+    torch.cuda.reset_peak_memory_stats()
+    responses = []
+    generate = runner.generate
+
+    def recording_generate(text, config=None):
+        resp = generate(text, config)
+        responses.append(resp)
+        return resp
+
+    runner.generate = recording_generate
+    srv = make_server(state, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    counters = launch_counters()
+    for kernel in counters.values():
+        kernel.launches = 0
+    summary = {"load_s": load_s, "load_timings": runner.load_timings, "requests": {}}
+
+    def speech(kind, payload):
+        t = time.perf_counter()
+        status, body, ctype = _post(port, payload)
+        wall = time.perf_counter() - t
+        check(status == 200 and ctype == "audio/wav", f"{kind}: HTTP {status} {ctype}: "
+              f"{body[:200]!r}")
+        resp = responses[-1]
+        with wave.open(io.BytesIO(body)) as wf:
+            n = wf.getnframes()
+            check(wf.getframerate() == 44100, f"{kind}: rate {wf.getframerate()}")
+        steps, frames = resp.timings["decode_steps"], resp.timings["frames"]
+        check(steps == PARLER_MAX_TOKENS, f"{kind}: {steps} rows, not {PARLER_MAX_TOKENS}")
+        check(0 < n == len(resp.audio) == 512 * frames, f"{kind}: wav {n} samples, audio "
+              f"{len(resp.audio)}, {frames} frames")
+        check(bool(np.isfinite(resp.audio).all()), f"{kind}: non-finite audio")
+        check(float(np.abs(resp.audio).max()) > 0, f"{kind}: silent audio")
+        check(resp.timings["prompt_tokens"] in parler_gemm_lengths(),
+              f"{kind}: prefill M={resp.timings['prompt_tokens']} was not checked in phase 3")
+        dec_s = resp.timings["decode_ms"] / 1e3
+        m = {"wall_ms": wall * 1e3, "prefill_ms": resp.timings["prefill_ms"],
+             "prompt_tokens": resp.timings["prompt_tokens"], "rows": steps,
+             "decode_rows_per_s": steps / dec_s, "codec_ms": resp.timings["codec_ms"],
+             "frames": frames, "audio_s": n / 44100, "rtf": wall / (n / 44100)}
+        print(f"{kind:15s} wall {wall * 1e3:8.1f} ms  prefill {m['prompt_tokens']} tok in "
+              f"{m['prefill_ms']:6.1f} ms  decode {steps} rows in {dec_s * 1e3:8.1f} ms = "
+              f"{m['decode_rows_per_s']:6.1f} rows/s  codec {m['codec_ms']:6.1f} ms  {frames} "
+              f"frames, audio {m['audio_s']:.3f} s  RTF {m['rtf']:.3f}")
+        summary["requests"][kind] = m
+        return resp
+
+    try:
+        first = speech("sampled", {"input": PARLER_TEXTS[0], "max_tokens": PARLER_MAX_TOKENS,
+                                   "seed": 1})
+        speech("greedy (spec)", {"input": PARLER_TEXTS[1], "max_tokens": PARLER_MAX_TOKENS,
+                                 "sample": False})
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/audio/speech",
+            data=json.dumps({"input": PARLER_TEXTS[2], "max_tokens": PARLER_MAX_TOKENS, "seed": 2,
+                             "response_format": "pcm"}).encode(),
+            headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            head = resp.read(2)
+            ttfa = time.perf_counter() - t
+            n = (len(head) + len(resp.read())) // 2
+        wall = time.perf_counter() - t
+        check(n > 0, "pcm stream: no audio")
+        summary["requests"]["stream"] = {"ttfa_ms": ttfa * 1e3, "wall_ms": wall * 1e3,
+                                         "audio_s": n / 44100, "rtf": wall / (n / 44100)}
+        print(f"pcm stream      TTFA {ttfa * 1e3:8.1f} ms  wall {wall * 1e3:8.1f} ms  audio "
+              f"{n / 44100:.3f} s  RTF {wall / (n / 44100):.3f}")
+        t = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/audio/conditional-prompt",
+            data=json.dumps({"prompt": PARLER_DESCRIPTION, "text_encoder_path": t5_path}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            check(resp.status == 200 and json.loads(resp.read()) == {"status": "ok"},
+                  "conditional-prompt failed")
+        cond_ms = (time.perf_counter() - t) * 1e3
+        enc = tuple(runner.params["text_encoding"].shape)
+        check(enc[0] in parler_gemm_lengths() and enc[1] == 1024,
+              f"conditional-prompt: encoding {enc} not checked in phase 3")
+        summary["conditional_prompt_ms"] = cond_ms
+        print(f"conditional-prompt: T5 load + encode + cross-KV {cond_ms:.1f} ms -> encoding {enc}")
+        after = speech("sampled, new prompt", {"input": PARLER_TEXTS[0],
+                                               "max_tokens": PARLER_MAX_TOKENS, "seed": 1})
+        check(not (after.audio.shape == first.audio.shape
+                   and np.array_equal(after.audio, first.audio)),
+              "the conditional prompt did not change the audio")
+        summary["max_memory_allocated_mib"] = (torch.cuda.max_memory_allocated() - base) / mib
+    finally:
+        counts = {k: c.launches for k, c in counters.items()}
+        runner.generate = generate
+        srv.shutdown()
+        srv.server_close()
+        stop_workers(state)
+    print(f"launches over the Parler {qtype} requests: {counts}")
+    sequential = 3 * PARLER_MAX_TOKENS     # rows of the three sampled requests
+    per = PARLER_LAYERS * PARLER_LINEARS
+    gemv, gemm = PATH_KERNELS[qtype]
+    check(per * sequential <= counts[gemv] <= per * (sequential + 3),
+          f"{gemv} launched {counts[gemv]}, not {per} per sequential row ({sequential} rows)")
+    check(counts[gemm] >= per * (4 + PARLER_MAX_TOKENS // 8) + 2 * PARLER_LAYERS,
+          f"{gemm} launched {counts[gemm]} < 4 prefills, one greedy request's verify windows "
+          f"and one cross-KV precompute")
+    check(counts["flash_decode"] == 0, f"the Parler path launched flash_decode {counts}")
+    for other in PATH_KERNELS.values():
+        if other != (gemv, gemm):
+            check(counts[other[0]] == counts[other[1]] == 0,
+                  f"the Parler {qtype} path launched {other}: {counts}")
+    print(f"max_memory_allocated during the requests {summary['max_memory_allocated_mib']:.0f} "
+          f"MiB over what was allocated before the load (weights, cache, T5 while encoding)")
+    summary["bracket"] = parler_bracket(runner, PARLER_TEXTS[1])
+    prof = _profile_request(runner, PARLER_TEXTS[0],
+                            GenerationConfig(seed=1, top_k=50, max_tokens=PARLER_PROFILE_ROWS),
+                            f"parler_{qtype}")
+    print(json.dumps({f"parler_{qtype}_profile": prof}))
+    summary["profile"] = {k: prof[k] for k in ("wall_ms", "unprofiled_wall_ms", "device_busy_ms",
+                                               "device_busy_share",
+                                               "device_busy_share_of_unprofiled_wall")}
+    return counts, summary
+
+
+def parler() -> dict:
+    """Phase 7; returns the launch counts of each Parler path's served
+    requests."""
+    phase("7 Parler-TTS mini v1: tiny models, cuda against cpu")
+    import torch
+
+    os.makedirs(MODEL_DIR, exist_ok=True)
+    for qtype in QTYPES:
+        parler_tiny_cuda_vs_cpu(qtype)
+    paths, t5 = parler_models()
+    # served with torch's default math flags, as users run it
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    counts, summary = {}, {}
+    for qtype in QTYPES:
+        counts[f"parler_{qtype}"], summary[qtype] = parler_server(paths[qtype], qtype, t5)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    print(json.dumps({"parler": summary}))
     return counts
 
 
@@ -987,6 +1374,7 @@ def main() -> int:
     paths = model()
     counts = {qtype: server(paths[qtype], qtype) for qtype in QTYPES}
     counts["kokoro"] = kokoro()
+    counts.update(parler())
     for r in results:
         path = next((q for q, ks in PATH_KERNELS.items() if r["name"] in ks), QTYPES[0])
         r["launches"] = counts[path][r["name"]]

@@ -1,8 +1,9 @@
 """The port's own host-side modules against their JAX-package counterparts:
-the GGUF reader and writer (tts_tpu_torch.core), the BPE and single-pass
-tokenizers, Kokoro's phonemizer, espeak binding and GGUF builder, the WAV
-and AIFF encoders, and the speech server (on test:dummy and on a tiny
-Kokoro), each given the same inputs."""
+the GGUF reader and writer (tts_tpu_torch.core), the unigram, BPE and
+single-pass tokenizers, Kokoro's phonemizer, espeak binding and GGUF
+builder, the Parler, T5 and DAC builders, the WAV and AIFF encoders, and
+the speech server (on test:dummy and on a tiny Kokoro), each given the same
+inputs."""
 
 import ctypes.util
 import json
@@ -17,7 +18,10 @@ import pytest
 pytest.importorskip("jax")  # the reference; absent where only the port runs
 
 from tts_tpu.apps import server as jserver  # noqa: E402
+from tts_tpu.convert import builder_codecs as jcodecs  # noqa: E402
 from tts_tpu.convert import builder_kokoro as jbuilder  # noqa: E402
+from tts_tpu.convert import builder_parler as jparler  # noqa: E402
+from tts_tpu.convert import builder_t5 as jt5  # noqa: E402
 from tts_tpu.core import gguf as jgguf  # noqa: E402
 from tts_tpu.runtime.api import GenerationConfig as JaxGenerationConfig  # noqa: E402
 from tts_tpu.runtime.api import TTSError as JaxTTSError  # noqa: E402
@@ -25,15 +29,20 @@ from tts_tpu.text import espeak as jespeak  # noqa: E402
 from tts_tpu.text import phonemizer as jphonemizer  # noqa: E402
 from tts_tpu.text.tokenizers import BPETokenizer as JaxBPETokenizer  # noqa: E402
 from tts_tpu.text.tokenizers import SinglePassTokenizer as JaxSinglePassTokenizer  # noqa: E402
+from tts_tpu.text.tokenizers import UnigramTokenizer as JaxUnigramTokenizer  # noqa: E402
 from tts_tpu.utils import audio as jaudio  # noqa: E402
 from tts_tpu_torch.apps import server as tserver  # noqa: E402
+from tts_tpu_torch.convert import builder_codecs as tcodecs  # noqa: E402
 from tts_tpu_torch.convert import builder_kokoro as tbuilder  # noqa: E402
+from tts_tpu_torch.convert import builder_parler as tparler  # noqa: E402
+from tts_tpu_torch.convert import builder_t5 as tt5  # noqa: E402
 from tts_tpu_torch.convert.builder_orpheus import orpheus_kv  # noqa: E402
 from tts_tpu_torch.core import gguf as tgguf  # noqa: E402
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError  # noqa: E402
 from tts_tpu_torch.text import espeak as tespeak  # noqa: E402
 from tts_tpu_torch.text import phonemizer as tphonemizer  # noqa: E402
-from tts_tpu_torch.text.tokenizers import BPETokenizer, SinglePassTokenizer  # noqa: E402
+from tts_tpu_torch.text.tokenizers import (BPETokenizer, SinglePassTokenizer,  # noqa: E402
+                                           UnigramTokenizer)
 from tts_tpu_torch.utils import audio as taudio  # noqa: E402
 
 TENSOR_TYPES = ["F32", "F16", "BF16", "Q8_0", "Q5_0", "Q4_0"]
@@ -100,6 +109,63 @@ def test_bpe_tokenizer_gives_jax_ids(text):
     kv["tokenizer.ggml.merges"] += ["t h", "th e", "Ġ th", "Ġth e", "e r", "er e"]
     assert (BPETokenizer.from_gguf_kv(kv).tokenize(text)
             == JaxBPETokenizer.from_gguf_kv(kv).tokenize(text))
+
+
+UNIGRAM_TEXTS = ["hello world", "the  cat   sat", "", "naïve café!", "ab\u2581cd", "zzz 123 ?",
+                 "a calm female voice, close up"]
+
+
+@pytest.mark.parametrize("text", UNIGRAM_TEXTS)
+def test_unigram_tokenizer_gives_jax_ids(text):
+    """Parler's tokenizer: the tiny builder vocabulary (chars, space, unk;
+    every byte outside it an unknown, consecutive unknowns merged), and one
+    with multi-character pieces, scores that prefer them and a SentencePiece
+    '\u2581' piece, with and without space deduplication."""
+    kv = tparler.unigram_kv(40)
+    kv["tokenizer.ggml.tokens"] = kv["tokenizer.ggml.tokens"] + ["\u2581the", "he", "ll", "cat"]
+    kv["tokenizer.ggml.scores"] = np.concatenate([kv["tokenizer.ggml.scores"],
+                                                  np.float32([-0.5, -1.2, -1.5, -0.1])])
+    for vocab in (tparler.unigram_kv(120), kv):
+        got, want = UnigramTokenizer.from_gguf_kv(vocab), JaxUnigramTokenizer.from_gguf_kv(vocab)
+        assert got.tokenize(text) == want.tokenize(text)
+        got.dedupe_spaces = want.dedupe_spaces = False
+        assert got.tokenize(text) == want.tokenize(text)
+
+
+@pytest.mark.parametrize("kwargs", [{}, dict(n_layers=2, hidden=256, heads=4, ffn=512)],
+                         ids=["default", "tiny"])
+def test_parler_builder_is_byte_identical(tmp_path, kwargs):
+    want = jparler.write_parler_gguf(tmp_path / "jax.gguf", seed=4, **kwargs)
+    got = tparler.write_parler_gguf(tmp_path / "port.gguf", seed=4, **kwargs)
+    assert got.read_bytes() == want.read_bytes()
+
+
+@pytest.mark.parametrize("kwargs", [{}, dict(out_size=32, n_layers=1)], ids=["default", "out32"])
+def test_t5_builder_is_byte_identical(tmp_path, kwargs):
+    want = jt5.write_t5_gguf(tmp_path / "jax.gguf", seed=2, **kwargs)
+    got = tt5.write_t5_gguf(tmp_path / "port.gguf", seed=2, **kwargs)
+    assert got.read_bytes() == want.read_bytes()
+
+
+def test_dac_builder_gives_jax_tensors():
+    """build_dac_tensors with its defaults (decoder_dim = channels[0]) draws
+    the JAX builder's tensors and metadata; DAC_44KHZ's decoder_dim widens
+    only the in-conv's output and block 1's input."""
+    want, want_kv = jcodecs.build_dac_tensors(np.random.default_rng(6), latent=32,
+                                              channels=(24, 12, 6, 4))
+    got, got_kv = tcodecs.build_dac_tensors(np.random.default_rng(6), latent=32,
+                                            channels=(24, 12, 6, 4))
+    assert got_kv == want_kv and list(got) == list(want)
+    for name, arr in want.items():
+        assert got[name].dtype == arr.dtype
+        np.testing.assert_array_equal(got[name], arr, err_msg=name)
+    wide, _ = tcodecs.build_dac_tensors(np.random.default_rng(6), latent=32,
+                                        channels=(24, 12, 6, 4), decoder_dim=40)
+    shapes = {n: a.shape for n, a in wide.items() if a.shape != want[n].shape}
+    assert shapes == {"audio_encoder.initial.weight": (40, 32, 7),
+                      "audio_encoder.initial.bias": (40,),
+                      "audio_encoder.decoder_block.1.final.alpha": (1, 40, 1),
+                      "audio_encoder.decoder_block.1.final.weight": (40, 24, 16)}
 
 
 @pytest.mark.parametrize("fmt", ["wav16", "wav32", "aiff"])

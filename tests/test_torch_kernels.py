@@ -1,5 +1,5 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the card,
-at the Orpheus-3B shapes.  Every test here needs a CUDA device and skips
+at the Orpheus-3B shapes and at Parler-TTS mini v1's.  Every test here needs a CUDA device and skips
 without one; the file imports no jax, so it runs where only the port does:
 
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -15,6 +15,12 @@ from tts_tpu_torch.ops import qmatmul as tq
 
 # Orpheus-3B linears (K, N): qkv, o, gateup, down, padded lm_head
 ORPHEUS_SHAPES = [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072), (3072, 157696)]
+# Parler-TTS mini v1 linears (K, N): q/k/v/o and the cross-attention's
+# (hidden 1024, a 1024-wide encoding), fc1, fc2
+PARLER_SHAPES = [(1024, 1024), (1024, 4096), (4096, 1024)]
+# Parler's GEMM rows: the verify window (8), a prompt ("hello world" and
+# its EOS: 13 tokens), the 32-row encoding of the cross-KV precompute
+PARLER_GEMM_M = [8, 13, 32]
 # Orpheus-3B attention: Hq, Hkv, padded cache length
 HQ, HKV, S, HS = 24, 8, 3584, 128
 
@@ -397,3 +403,48 @@ def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
         ta.flash_decode(q, k, v, torch.tensor([5], device=cuda), counters=counters)  # int32 pos
     with pytest.raises(ValueError):
         ta.flash_decode(q, k, v, torch.tensor([5], dtype=torch.int32, device=cuda))  # counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("K,N", PARLER_SHAPES)
+def test_parler_gemv_matches_plain_in_one_kernel(cuda, K, N, packed):
+    """Parler's decode step passes the GEMVs f32 x (rounded to bf16 by the
+    kernel): against the plain version within 1e-4, one launch counted,
+    one device kernel with gemv_plan's grid."""
+    w, sc = rand_weight(packed, K, N, cuda, K + 3 * N)
+    x = torch.randn((1, K), device=cuda)
+    fn = tq.qgemv_int4 if packed else tq.qgemv_int8
+    plain = tq.qgemv_int4_plain if packed else tq.qgemv_int8_plain
+    n = fn.launches
+    got = fn(x, w, sc)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    assert rel_err(got, plain(x, w, sc)) < 1e-4
+    tile_n, splits, _ = tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)
+    acts = _ext.device_activity(lambda: fn(x, w, sc))
+    assert len(acts) == 1 and "qgemv_kernel" in acts[0]["name"], acts
+    assert acts[0]["grid"] == [splits, -(-N // tile_n), 1], acts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("M", PARLER_GEMM_M)
+@pytest.mark.parametrize("K,N", PARLER_SHAPES)
+def test_parler_gemm_matches_plain(cuda, K, N, M, packed):
+    """Parler's prefill, verify and cross-KV pass the GEMMs f32 x (hi + lo):
+    against the plain version within 1e-4, one launch counted, the shared
+    kernel with gemm_plan's grid and the split-K pass where K splits."""
+    w, sc = rand_weight(packed, K, N, cuda, K + 5 * N + M)
+    x = torch.randn((M, K), device=cuda)
+    fn = tq.qgemm_int4 if packed else tq.qgemm_int8
+    plain = tq.qgemm_int4_plain if packed else tq.qgemm_int8_plain
+    n = fn.launches
+    got = fn(x, w, sc)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    assert rel_err(got, plain(x, w, sc)) < 1e-4
+    m_tile, tile_n, splits, _ = tq.gemm_plan(M, K, N, _ext.sm_count(cuda.index or 0), packed)
+    acts = _ext.device_activity(lambda: fn(x, w, sc))
+    assert len(acts) == 1 + (splits > 1), acts
+    assert acts[0]["grid"] == [-(-N // tile_n), -(-M // m_tile), splits], acts

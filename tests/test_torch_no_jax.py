@@ -2,8 +2,8 @@
 fresh interpreter whose import hook refuses `jax`, `jaxlib` and `tts_tpu`
 (and every submodule of them), import each module of tts_tpu_torch, serve
 test:dummy through the port's server, then write a tiny Q8_0 or Q4_0
-Orpheus, or a tiny Kokoro, with the port's own builder, load it and
-synthesize on the CPU."""
+Orpheus, a tiny Kokoro, or a tiny Q8_0 or Q4_0 Parler and T5, with the
+port's own builders, load it and synthesize on the CPU."""
 
 import os
 import subprocess
@@ -58,6 +58,26 @@ SCRIPT = textwrap.dedent("""
         r = runner_from_file(str(path), device="cpu")
         assert r.architecture == "kokoro" and r.list_voices() == ["af_heart"]
         resp = r.generate("hello world", GenerationConfig(voice="af_heart", seed=0))
+    elif qtype.startswith("parler"):
+        from tts_tpu_torch.convert.builder_codecs import DAC_44KHZ
+        from tts_tpu_torch.convert.builder_parler import PARLER_MINI_V1, write_random_parler
+        from tts_tpu_torch.convert.builder_t5 import write_t5_gguf
+        dims = dict(PARLER_MINI_V1, n_layers=2, hidden=256, heads=4, ffn=512, prompt_vocab=64,
+                    enc_len=12, enc_hidden=64, max_ctx=512, max_gen=64)
+        dac = dict(DAC_44KHZ, latent=96, decoder_dim=48, channels=(48, 24, 12, 6))
+        path = write_random_parler(sys.argv[1], qtype=qtype.split("-")[1], dac=dac, **dims)
+        t5 = write_t5_gguf(sys.argv[1] + ".t5", out_size=64)
+        r = runner_from_file(str(path), device="cpu")
+        key = "wq4" if qtype.endswith("Q4_0") else "wq"
+        assert r.architecture == "parler-tts" and key in r.params["layers"][0]["ca_k"]
+        r.update_conditional_prompt(str(t5), "a calm voice")
+        greedy = r.generate("hi", GenerationConfig(seed=0, max_tokens=15, sample=False))
+        resp = r.generate("hi", GenerationConfig(seed=0, max_tokens=15, top_k=50))
+        stream = np.concatenate(list(r.generate_stream(
+            "hi", GenerationConfig(seed=0, max_tokens=15, top_k=50), chunk_steps=4)))
+        assert stream.shape == resp.audio.shape and np.allclose(stream, resp.audio, atol=2e-5,
+                                                                rtol=0)
+        assert len(greedy.audio) == len(resp.audio)
     else:
         path = write_random_orpheus(sys.argv[1], qtype=qtype, **TINY, vocab=156940,
                                     snac_embd=96, snac_channels=(48, 24, 12, 6))
@@ -72,7 +92,7 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0", "kokoro"])
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0", "kokoro", "parler-Q8_0", "parler-Q4_0"])
 def test_port_runs_without_jax(tmp_path, qtype):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.path.join(ROOT, "tests"), os.environ.get("PYTHONPATH", "")]))
@@ -84,6 +104,8 @@ def test_port_runs_without_jax(tmp_path, qtype):
     assert f"WAV 200 {44 + 2 * 44100 * 2}" in lines, lines
     # Orpheus: 15 tokens -> 2 frames of 4 * 512 samples; Kokoro: "hello
     # world" -> bos, 11 phoneme ids, eos at 3 frames each (sigmoid(-2.6) * 50
-    # ~ 3.45 per token) of 600 samples
-    n = 13 * 3 * 600 if qtype == "kokoro" else (15 // 7) * 4 * 512
+    # ~ 3.45 per token) of 600 samples; Parler: 15 rows -> 15 - 8 frames
+    # (the delay staircase) of 512 samples, every code an audio code
+    n = {"kokoro": 13 * 3 * 600, "parler-Q8_0": 7 * 512,
+         "parler-Q4_0": 7 * 512}.get(qtype, (15 // 7) * 4 * 512)
     assert f"AUDIO {n} True BLOCKED []" in lines, lines

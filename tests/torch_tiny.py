@@ -1,10 +1,11 @@
-"""A tiny Orpheus GGUF with Q8_0 or Q4_0 linears, shared by the port's tests
-(no jax import at module level).
+"""Tiny Orpheus and Parler GGUFs and the Parler tests' shared helpers, for the
+port's tests (no jax import at module level).
 
-Widths are small but kernel-eligible: head size 128 (the flash-decode
-kernels need it), output dims multiples of 256, input dims multiples of 64
-(the int4 nibble split), 2 layers, a 156,940-row embedding (prompt frame
-token ids index it), and build_snac_tensors' tiny SNAC."""
+Orpheus: Q8_0 or Q4_0 linears at small but kernel-eligible widths: head
+size 128 (the flash-decode kernels need it), output dims multiples of 256,
+input dims multiples of 64 (the int4 nibble split), 2 layers, a
+156,940-row embedding (prompt frame token ids index it), and
+build_snac_tensors' tiny SNAC.  Parler: see `write_tiny_parler`."""
 
 from __future__ import annotations
 
@@ -39,3 +40,114 @@ def write_tiny_orpheus(path, seed: int = 0, head_rows: int | None = None,
         w.add_tensor(name, arr, GGMLType[qtype] if quant else None)
     w.write()
     return path
+
+
+# Parler: 2 layers, hidden 256, 4 heads of 64, FFN 512; the JAX builder's
+# 512-position context, 64 decode steps, 12-row encoding of width 64 and DAC
+TINY_PARLER = dict(n_layers=2, hidden=256, heads=4, ffn=512)
+PARLER_QTYPES = ("dense", "Q8_0", "Q4_0")
+
+
+def write_tiny_parler(root, qtype: str = "dense"):
+    """The tiny Parler under directory `root`, by the JAX package's builder:
+    dense (f32), or quantized by its quantize tool to Q8_0 or Q4_0, the
+    cross-attention k/v too (--quantize-cross-attn-kv).  Returns the path."""
+    import pathlib
+
+    from tts_tpu.apps.quantize import QuantizationParams, quantize_gguf
+    from tts_tpu.convert.builder_parler import write_parler_gguf
+    from tts_tpu.core.gguf import GGMLType
+
+    dense = pathlib.Path(root) / "tiny_parler_dense.gguf"
+    if not dense.exists():
+        write_parler_gguf(dense, **TINY_PARLER)
+    if qtype == "dense":
+        return str(dense)
+    path = pathlib.Path(root) / f"tiny_parler_{qtype}.gguf"
+    if not path.exists():
+        quantize_gguf(str(dense), str(path),
+                      QuantizationParams(GGMLType[qtype], quantize_cross_attn_kv=True))
+    return str(path)
+
+
+
+def parler_models(path):
+    """(jax cfg, jax params, port cfg, port params) of one Parler GGUF by
+    each package's reader and loader, the cache dtype switched to bf16 on
+    quantized files as each package's runner loader does."""
+    import dataclasses
+
+    from tts_tpu.core.gguf import GGUFFile as JaxGGUFFile
+    from tts_tpu.models import parler as jp
+    from tts_tpu_torch.core.gguf import GGUFFile
+    from tts_tpu_torch.models import parler as tp
+
+    with JaxGGUFFile(path) as f:
+        jcfg = jp.ParlerConfig.from_gguf_kv(f.kv)
+        jparams = jp.load_parler_params(dict(f.tensors), jcfg)
+        if jp.parler_params_quantized(jparams):
+            jcfg = dataclasses.replace(jcfg, kv_dtype="bfloat16")
+    with GGUFFile(path) as f:
+        tcfg = tp.ParlerConfig.from_gguf_kv(f.kv)
+        tparams = tp.load_parler_params(dict(f.tensors), tcfg)
+        if tp.parler_params_quantized(tparams):
+            tcfg = dataclasses.replace(tcfg, kv_dtype="bfloat16")
+    return jcfg, jparams, tcfg, tparams
+
+
+# Greedy choices are compared up to numerical ties: on quantized models a
+# decode step's GEMV rounds its f32 input to bf16, and an f32 sum that
+# differs in its last bit between the packages (or between the GEMV and the
+# verify's GEMM, or where JAX's int4 product keeps x in f32 at K = 256) can
+# flip that rounding; the logits, spanning about +-0.2, then differ by up
+# to ~1e-3.  Where the other side's token is within PARLER_TIE of the best
+# logit, rounding decides and either is right.
+PARLER_TIE = 2e-3
+
+
+def staircase_inputs(cfg, rows):
+    """The sequential loop's input row before each of `rows` [n, 9] (the
+    all-BOS row, then each emitted row through the BOS delays and EOS
+    pinning)."""
+    from tts_tpu_torch.models import parler as tp
+
+    state = tp.init_loop_state(cfg)
+    ins = []
+    for i, row in enumerate(rows):
+        ins.append(state[0])
+        eos = state[1] | (row == cfg.eos_token_id)
+        state = (tp._next_row(cfg, row, eos, i + 1), eos, i + 1)
+    return np.stack(ins)
+
+
+def port_logits_along(cfg, params, ids, ins, width: int = 1):
+    """Port logits [n, 9, vocab] teacher-forced along input rows `ins` after
+    the prompt `ids`'s prefill, `width` rows per forward."""
+    import torch
+
+    from tts_tpu_torch.models import parler as tp
+
+    cache = tp.init_kv_cache(cfg)
+    cross = tp.precompute_cross_kv(params, cfg)
+    tp.parler_prefill(params, cfg, torch.tensor(ids), cache, cross)
+    return torch.cat([tp._rows_logits(params, cfg, torch.from_numpy(ins[i:i + width]),
+                                      len(ids) + i, cache, cross)
+                      for i in range(0, len(ins), width)])
+
+
+def first_part(logits, want) -> tuple[int, float]:
+    """The first row where the argmax of `logits` [n, 9, vocab] differs from
+    `want` [n, 9] (n if none), and the top-2 gap of a differing head there;
+    asserts every difference is a near-tie (PARLER_TIE)."""
+    import torch
+
+    want = torch.from_numpy(np.asarray(want, np.int64))
+    agree = logits.argmax(-1) == want
+    gap = logits.max(-1).values - logits.gather(-1, want[..., None])[..., 0]
+    assert bool((agree | (gap < PARLER_TIE)).all()), f"non-tie disagreement, gaps {gap[~agree]}"
+    rows = (~agree).any(-1).nonzero()
+    if not len(rows):
+        return len(want), float("inf")
+    r = int(rows[0])
+    top2 = logits[r].topk(2, dim=-1).values
+    return r, float((top2[:, 0] - top2[:, 1])[~agree[r]].min())

@@ -39,6 +39,20 @@ def orpheus_kv(n_layers: int, hidden: int, heads: int, kv_heads: int, head_dim: 
             "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.merges": ["Ġ a"]}
 
 
+def write_random_linear(w: GGUFWriter, rng: np.random.Generator, name: str, out_dim: int,
+                        in_dim: int, qtype: str, std: float):
+    """Add a random `qtype` (Q8_0 or Q4_0) linear [out_dim, in_dim] to `w`:
+    uniform raw values, and per block of 32 an f16 `d` that scales them to
+    about `std`, +-50%."""
+    nbytes, raw_std = _BLOCKS[qtype]
+    nb = out_dim * in_dim // 32
+    blocks = np.empty((nb, 2 + nbytes), np.uint8)
+    blocks[:, 2:] = np.frombuffer(rng.bytes(nb * nbytes), np.uint8).reshape(nb, nbytes)
+    d = (std / raw_std * (0.5 + rng.random(nb, dtype=np.float32))).astype(np.float16)
+    blocks[:, :2] = d.view(np.uint8).reshape(nb, 2)
+    w.add_raw_tensor(name, (in_dim, out_dim), GGMLType[qtype], blocks.reshape(-1))
+
+
 def write_random_orpheus(path, seed: int = 0, *, qtype: str = "Q8_0", n_layers: int,
                          hidden: int, heads: int, kv_heads: int, head_dim: int, ffn: int,
                          vocab: int, snac_embd: int, snac_channels: tuple,
@@ -47,7 +61,6 @@ def write_random_orpheus(path, seed: int = 0, *, qtype: str = "Q8_0", n_layers: 
     about `std`), an F16 embedding, f32 unit norms, unit RoPE factors and a
     dense-residual SNAC of the given widths.  With `**ORPHEUS_3B` the full
     model is 4.6 GB in Q8_0 (about 25 s) and 2.9 GB in Q4_0."""
-    nbytes, raw_std = _BLOCKS[qtype]
     rng = np.random.default_rng(seed)
     snac_tensors, snac_kv = build_snac_tensors(rng, embd=snac_embd, channels=snac_channels)
     w = GGUFWriter(path)
@@ -56,13 +69,7 @@ def write_random_orpheus(path, seed: int = 0, *, qtype: str = "Q8_0", n_layers: 
         w.add_kv(k, v)
 
     def linear(name, out_dim, in_dim):
-        nb = out_dim * in_dim // 32
-        blocks = np.empty((nb, 2 + nbytes), np.uint8)
-        blocks[:, 2:] = np.frombuffer(rng.bytes(nb * nbytes), np.uint8).reshape(nb, nbytes)
-        # d scales the raw values to about `std`, +-50% per block
-        d = (std / raw_std * (0.5 + rng.random(nb, dtype=np.float32))).astype(np.float16)
-        blocks[:, :2] = d.view(np.uint8).reshape(nb, 2)
-        w.add_raw_tensor(name, (in_dim, out_dim), GGMLType[qtype], blocks.reshape(-1))
+        write_random_linear(w, rng, name, out_dim, in_dim, qtype, std)
 
     embd = rng.standard_normal(vocab * hidden, dtype=np.float32).reshape(vocab, hidden)
     w.add_tensor("orpheus.embed_tokens", (embd * std).astype(np.float16))

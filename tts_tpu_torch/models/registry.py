@@ -36,6 +36,7 @@ def runner_from_file(path: str, config: GenerationConfig | None = None,
     import tts_tpu_torch.models.dummy  # noqa: F401  (register their loaders)
     import tts_tpu_torch.models.kokoro_runner  # noqa: F401
     import tts_tpu_torch.models.orpheus  # noqa: F401
+    import tts_tpu_torch.models.parler  # noqa: F401
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -378,3 +378,12 @@ def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     if "wq" in p:
         return quantized_matmul(x, p["wq"], p["scales"])
     return x @ p["w"].to(x.dtype)
+
+
+def apply_linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """x [..., K] through a loader-made linear (`linear`'s dicts), leading
+    dims flattened: M == 1 rows take the GEMV, M > 1 the GEMM.  Returns
+    x's dtype, as the JAX package's `apply_linear` does."""
+    lead = x.shape[:-1]
+    out = linear(x.reshape(-1, x.shape[-1]), p)
+    return out.reshape(*lead, out.shape[-1]).to(x.dtype)

@@ -1,9 +1,13 @@
-"""Host-side tokenizers: Kokoro's greedy single-pass tokenizer and Orpheus's
-byte-pair encoder (llama-3 vocabulary).
+"""Host-side tokenizers: Parler's SentencePiece-unigram tokenizer, Kokoro's
+greedy single-pass tokenizer and Orpheus's byte-pair encoder (llama-3
+vocabulary).
 
-The port's own copies of `SinglePassTokenizer` and `BPETokenizer` from
-`tts_tpu/text/tokenizers.py`, so both packages give the same ids for the
-same text:
+The port's own copies of `UnigramTokenizer`, `SinglePassTokenizer` and
+`BPETokenizer` from `tts_tpu/text/tokenizers.py`, so both packages give the
+same ids for the same text:
+- `UnigramTokenizer` is a Viterbi best path over the vocabulary's byte
+  strings, with an unknown-token fallback and consecutive unknowns merged
+  (Parler and its T5 encoder; the GGUF vocabulary stores literal spaces);
 - `SinglePassTokenizer.tokenize` is shortest-match-first over bytes (Kokoro's
   char-level vocabulary), `token_split` longest-match (the phonemizer's
   graphemes);
@@ -16,6 +20,81 @@ from __future__ import annotations
 
 import re
 from typing import Sequence
+
+_DUPED_SPACES = re.compile(r"\s{2,}")
+
+
+class UnigramTokenizer:
+    def __init__(self, vocab: dict[str, int], unk_token: int, scores: Sequence[float],
+                 eos_token: int = 1, dedupe_spaces: bool = True):
+        self.vocab = vocab
+        self.scores = list(scores)
+        self.unk_token = int(unk_token)
+        self.unk_score = self.scores[self.unk_token] if self.scores else 0.0
+        self.eos_token = int(eos_token)
+        self.dedupe_spaces = dedupe_spaces
+        # byte-keyed vocab, as the reference's byte trie matches
+        self._bvocab: dict[bytes, int] = {k.encode("utf-8"): v for k, v in vocab.items()}
+        self._max_len = max((len(k) for k in self._bvocab), default=1)
+
+    @classmethod
+    def from_gguf_kv(cls, kv: dict) -> "UnigramTokenizer":
+        tokens = [t.replace("\u2581", " ") for t in kv["tokenizer.ggml.tokens"]]
+        vocab = {t: i for i, t in enumerate(tokens)}
+        scores = [float(s) for s in kv["tokenizer.ggml.scores"]]
+        unk = int(kv["tokenizer.ggml.unknown_token_id"])
+        eos = int(kv.get("tokenizer.ggml.eos_token_id", 1))
+        return cls(vocab, unk, scores, eos_token=eos)
+
+    def tokenize(self, text: str) -> list[int]:
+        if self.dedupe_spaces:
+            text = " " + _DUPED_SPACES.sub(" ", text)
+        data = text.encode("utf-8")
+        n = len(data)
+        NEG = float("-inf")
+        # best[i] = (token, backpointer offset, best score reaching byte i)
+        best = [(self.unk_token, 0, NEG)] * (n + 1)
+        best[0] = (self.unk_token, 0, 0.0)
+
+        offset = 0
+        while offset < n:
+            b0 = data[offset]
+            step = 1 if b0 < 0xC0 else (2 if b0 < 0xE0 else (3 if b0 < 0xF0 else 4))
+            step = min(step, n - offset)
+            base_score = best[offset][2]
+            found_known_char = False
+            end_cap = min(n, offset + self._max_len)
+            for end in range(offset + 1, end_cap + 1):
+                tok_id = self._bvocab.get(data[offset:end])
+                if tok_id is None:
+                    continue
+                if end - offset == step:
+                    found_known_char = True
+                score = base_score + self.scores[tok_id]
+                if score > best[end][2]:
+                    best[end] = (tok_id, offset, score)
+            if not found_known_char:
+                end = offset + step
+                score = base_score + self.unk_score
+                if score > best[end][2]:
+                    best[end] = (self.unk_token, offset, score)
+            offset += step
+
+        # walk back, merging consecutive unknowns
+        tokens: list[int] = []
+        pos = n
+        prev_unknown = False
+        while True:
+            tok, back, _ = best[pos]
+            is_unknown = tok == self.unk_token
+            if not (prev_unknown and is_unknown):
+                tokens.append(tok)
+            if back == 0:
+                break
+            prev_unknown = is_unknown
+            pos = back
+        tokens.reverse()
+        return tokens
 
 
 class SinglePassTokenizer:
