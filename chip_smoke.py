@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of tts_tpu_torch on one CUDA card: the quickest proof that the
 port builds, that its kernels agree with their plain versions, and that its
-server answers requests from full-width Orpheus-3B and Parler-TTS mini v1
-models with Q8_0 and with Q4_0 linears, and from Kokoro-82M.
+server answers requests from full-width Orpheus-3B, Parler-TTS mini v1 and
+Dia-1.6B models with Q8_0 and with Q4_0 linears, and from Kokoro-82M.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,10 @@ Phases (any failure exits non-zero, before the final line):
      one shape.  Then Parler-TTS mini v1's shapes on f32 x, as its layers
      pass it: the GEMVs at (K, N) = (1024, 1024), (1024, 4096), (4096,
      1024), the GEMMs there at M = 8 (the verify window), phase 7's prompt
-     lengths and its encoding lengths (the cross-KV).
+     lengths and its encoding lengths (the cross-KV).  Then Dia-1.6B's
+     GEMMs on f32 x: (K, N) = (2048, 2048), (2048, 512), (2048, 8192),
+     (8192, 2048) at M = 2 (a CFG decode step) and 16 (an 8-row verify),
+     and (1024, 2048) at M = 2048 (the cross-KV of the 1024-byte context).
      The library call, where one computes the same function:
      scaled_dot_product_attention for bf16 flash-decode,
      torch._weight_int4pack_mm for the int4 products.  The GEMVs and GEMMs
@@ -35,8 +38,11 @@ Phases (any failure exits non-zero, before the final line):
      GGUFs (28 layers, F16 embedding, full-width SNAC), Q8_0 and Q4_0,
      written under smoke_models/
   5. server: the port's server on cuda answers 3 /v1/audio/speech requests
-     (2 sampled, 1 greedy) from the Q8_0 model, then 3 from the Q4_0 model;
-     the launch counts of each run show which kernels served it
+     (2 sampled, 1 greedy: the speculative loop) and a greedy PCM stream
+     (TTFA) from the Q8_0 model, then from the Q4_0 model; the launch
+     counts of each run, exact against the forwards it ran, show which
+     kernels served it; then the greedy bracket: speculative, force_miss
+     and sequential tok/s after one prefill
   6. Kokoro-82M, which runs none of the five kernels: a tiny model's cuda
      run against its CPU run (f32, cuDNN TF32 off, the same noise; stage by
      stage, as the CPU tests hold port to JAX); then a
@@ -62,6 +68,17 @@ Phases (any failure exits non-zero, before the final line):
      sequential row, flash_decode 0; then the greedy bracket: speculative,
      force_miss and sequential rows/s after one prefill, and where the rows
      part
+  8. Dia-1.6B, which runs the format's GEMM alone (the CFG pair makes every
+     decode step M = 2): tiny Q8_0 and Q4_0 models' CUDA forwards (8 steps,
+     one 8-row verify at M = 16), cross-KV and DAC against the CPU; then
+     seeded random full-width Q8_0 and Q4_0 GGUFs under smoke_models/, each
+     served through the port's server with torch's default math flags: a
+     sampled request, a greedy one (the speculative loop), a PCM stream
+     (TTFA) and a second sampled request, 256 tokens each (wall, steps/s,
+     RTF, load s, peak memory); the launch counts must be exact: the
+     format's GEMM 36 per request (the cross-KV) plus 162 per step and per
+     verify window, the GEMVs, flash_decode and the other GEMM 0; then the
+     greedy bracket and one profiled request
 The line before the last is a JSON object of per-kernel results (each
 kernel's launches on its Orpheus path, and by path); the last is
 {"ok": true, "device": {...}}.  It imports only tts_tpu_torch, and fails if
@@ -156,6 +173,30 @@ PARLER_TINY = dict(n_layers=2, hidden=256, heads=4, ffn=512, prompt_vocab=64, en
                    enc_hidden=64, max_ctx=512, max_gen=64)
 PARLER_TINY_DAC = dict(latent=96, decoder_dim=48, channels=(48, 24, 12, 6))
 DAC_TOL = 1e-4                     # DAC audio, cuda against cpu, f32 with TF32 off
+# phase 8, Dia-1.6B (tts_tpu/models/dia.py DiaConfig defaults): its decoder
+# linears' (K, N) (self q/o and cross q/o, self k/v, gate/up, wo), run at
+# M = 2 and 16; the cross-KV's k/v at M = 2 x 1024
+DIA_SHAPES = {"q/o": (2048, 2048), "k/v": (2048, 512), "gate/up": (2048, 8192),
+              "wo": (8192, 2048)}
+DIA_GEMM_M = (2, 16)
+DIA_CROSS = ("cross k/v", 2048, 1024, 2048)     # (name, M, K, N)
+DIA_LAYERS, DIA_LINEARS = 18, 9
+DIA_MAX_TOKENS = 256               # per request: random heads never emit EOS
+DIA_BRACKET_TOKENS = 128           # the greedy bracket's requests
+DIA_PROFILE_TOKENS = 48
+DIA_TEXTS = ("[S1] Hello from Dia on the card. [S2] Hi, glad to hear it.",
+             "[S1] A greedy request on the speculative path.",
+             "[S1] And a streamed one. [S2] Sent as it is made.",
+             "[S2] A second sampled request, with another voice first.")
+# the tiny model of phase 8's cuda-against-cpu check (tests/torch_tiny.py's
+# widths: every decoder output a multiple of 256)
+DIA_TINY = dict(enc_layers=2, dec_layers=2, enc_hidden=256, dec_hidden=256, enc_heads=4,
+                dec_heads=4, query_heads=2, enc_ffn=512, ffn=512, enc_ctx=128, max_gen=64)
+# cross K/V, cuda against cpu: both round to bf16, and an f32 value a last
+# bit apart may round to the neighbouring bf16: one bf16 step of a value is
+# at most 2^-7 of the largest magnitude
+DIA_CROSS_TOL = 2.0 ** -7
+ORPHEUS_BRACKET_TOKENS = 140       # phase 5's greedy bracket
 # phase 5's requests to each model: (kind, /v1/audio/speech payload)
 REQUESTS = (
     ("sampled", {"input": "Hello from the port, this is a first test.", "voice": "zoe",
@@ -448,7 +489,8 @@ def kernels():
     # prefill (bf16 x; f32 x at one shape, which runs the kernels' hi + lo
     # products).  Then Parler-TTS mini v1's shapes, on f32 x as its layers
     # pass it: the GEMVs of a decode step, the GEMMs at the verify window,
-    # phase 7's prompt lengths and encoding lengths.
+    # phase 7's prompt lengths and encoding lengths; and Dia-1.6B's GEMMs
+    # on f32 x: a CFG step (M = 2), a verify (16), the cross-KV (2048).
     gemm_ms = sorted(set(GEMM_M) | set(prompt_lengths()))
     parler_ms = parler_gemm_lengths()
     for bits, fn, plain, tpu_line, ms_list, iters in (
@@ -476,6 +518,14 @@ def kernels():
                 rows.append(measure(fn, plain, bits, f"parler {name} M={M} x=float32", K, N, M,
                                     x, ws, tol, iters, False))
             del ws
+        if not gemv:
+            dia = [(name, M, K, N) for name, (K, N) in DIA_SHAPES.items() for M in DIA_GEMM_M]
+            for i, (name, M, K, N) in enumerate(dia + [DIA_CROSS]):
+                ws = rotating_weights(K, N, dev, 500 + 10 * i + bits, int4=bits == 4)
+                x = torch.randn((M, K), device=dev)
+                rows.append(measure(fn, plain, bits, f"dia {name} M={M} x=float32", K, N, M, x,
+                                    ws, tol, iters, False))
+                del ws
         record(fn.__name__, f"tts_tpu_torch/csrc/qmatmul{'4' if bits == 4 else ''}.cu",
                tpu_line, rows)
 
@@ -604,13 +654,72 @@ def launch_counters() -> dict:
                                     tq.qgemm_int4, ta.flash_decode)}
 
 
+def _counting(module, name: str, kind):
+    """Replace module.name by a wrapper that counts its calls in a Counter
+    under kind(*args) (the forwards a served run made, against which its
+    launch counts are checked); returns (counter, restore)."""
+    import collections
+
+    fn = getattr(module, name)
+    calls: collections.Counter = collections.Counter()
+
+    def wrapped(*args, **kw):
+        calls[kind(*args, **kw)] += 1
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapped)
+    return calls, lambda: setattr(module, name, fn)
+
+
+def orpheus_bracket(runner, text: str) -> dict:
+    """Greedy tok/s of one ORPHEUS_BRACKET_TOKENS request decoded three ways
+    after the same prefill: the speculative loop, its force_miss floor
+    (every draft rejected: one token per 8-token forward) and the
+    sequential loop; the first token where each parts from the sequential
+    tokens.  Launches made here are not counted for the path."""
+    import torch
+
+    from tts_tpu_torch.models import orpheus as tor
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    config = GenerationConfig(sample=False, seed=0, max_tokens=ORPHEUS_BRACKET_TOKENS)
+    ids = runner._prompt_ids(text, config)
+    toks, rates = {}, {}
+    for mode in ("spec", "force_miss", "sequential"):
+        with torch.inference_mode():
+            _, first, _, state, max_steps = runner._prefill(ids, config)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "sequential":
+                got, _ = tor.orpheus_decode_loop(runner.params, runner.cfg, first, len(ids),
+                                                 max_steps - 1, runner._cache, None, state,
+                                                 do_sample=False)
+            else:
+                got = tor.orpheus_decode_loop_spec(runner.params, runner.cfg, int(first[0]),
+                                                   len(ids), max_steps - 1, runner._cache,
+                                                   force_miss=mode == "force_miss")
+            torch.cuda.synchronize()
+        toks[mode] = got
+        rates[mode] = len(got) / (time.perf_counter() - t0)
+    seq = toks["sequential"]
+    part = {m: next((i for i, (a, b) in enumerate(zip(toks[m], seq)) if a != b),
+                    min(len(toks[m]), len(seq))) for m in ("spec", "force_miss")}
+    print(f"greedy bracket ({len(seq)} tokens after a {len(ids)}-token prefill): "
+          + ", ".join(f"{m} {v:.1f} tok/s" for m, v in rates.items())
+          + f"; tokens equal to the sequential loop's up to token {part['spec']} (spec), "
+          f"{part['force_miss']} (force_miss)")
+    return {"tok_per_s": rates, "tokens": len(seq), "first_part_from_sequential": part}
+
+
 def server(path: str, qtype: str) -> dict:
-    """Serve 3 requests from one full-width model; returns the launch counts
-    of that run, every counter set to 0 just before it."""
+    """Serve 3 requests and a greedy PCM stream from one full-width model;
+    returns the launch counts of that run, every counter set to 0 just
+    before it."""
     phase(f"5 server, Orpheus-3B {qtype}")
     import torch
 
     from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
+    from tts_tpu_torch.models import orpheus as tor
     from tts_tpu_torch.runtime.api import GenerationConfig
 
     gc.collect()
@@ -636,6 +745,11 @@ def server(path: str, qtype: str) -> dict:
         return resp
 
     runner.generate = recording_generate
+    # a forward of one token is a decode step, one at position 0 a prefill,
+    # any other a verify window
+    forwards, restore = _counting(tor, "_orpheus_body", lambda p, c, tokens, positions, cache,
+                                  start=0: "step" if tokens.shape[0] == 1
+                                  else "verify" if start else "prefill")
     srv = make_server(state, port=0)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     port = srv.server_address[1]
@@ -666,22 +780,45 @@ def server(path: str, qtype: str) -> dict:
                   f" tok in {resp.timings['prefill_ms']:7.1f} ms  decode {steps} tok in {dec_s * 1e3:8.1f} ms = {steps / dec_s:6.1f} tok/s"
                   f"  codec {resp.timings['codec_ms']:6.1f} ms  audio {n / 24000:.3f} s  "
                   f"RTF {wall / (n / 24000):.3f}")
+        verify_before = forwards["verify"]
+        check(verify_before > 0, "the greedy request ran no verify window")
+        kind, payload = REQUESTS[2]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/audio/speech",
+            data=json.dumps({**payload, "response_format": "pcm"}).encode(),
+            headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            head = resp.read(2)
+            ttfa = time.perf_counter() - t
+            n = (len(head) + len(resp.read())) // 2
+        wall = time.perf_counter() - t
+        check(n == (payload["max_tokens"] // 7) * 4 * 512, f"greedy pcm stream: {n} samples")
+        check(forwards["verify"] > verify_before, "the greedy stream ran no verify window")
+        print(f"greedy pcm stream (speculative, 70-token chunks)  TTFA {ttfa * 1e3:8.1f} ms  "
+              f"wall {wall * 1e3:8.1f} ms  audio {n / 24000:.3f} s  RTF {wall / (n / 24000):.3f}")
     finally:
         counts = {k: c.launches for k, c in counters.items()}
+        restore()
+        runner.generate = generate
         srv.shutdown()
         srv.server_close()
         stop_workers(state)
     tokens = sum(r.timings["decode_steps"] for r in responses)
-    steps = sum(r.timings["decode_steps"] - 1 for r in responses)
-    print(f"launches over {len(responses)} requests ({tokens} tokens): {counts}")
+    print(f"launches over {len(responses)} requests and a stream ({tokens} tokens in the "
+          f"requests; forwards {dict(forwards)}): {counts}")
     gemv, gemm = PATH_KERNELS[qtype]
+    per = LAYERS * LINEARS_PER_LAYER
     check(len(responses) == len(REQUESTS), f"{len(responses)} responses")
-    check(counts[gemv] >= (LAYERS * LINEARS_PER_LAYER + 1) * steps,
-          f"{gemv} launched {counts[gemv]} < (28 * 4 + 1) * {steps} decode steps")
-    check(counts["flash_decode"] >= LAYERS * steps,
-          f"flash_decode launched {counts['flash_decode']} < 28 * {steps} decode steps")
-    check(counts[gemm] >= LAYERS * LINEARS_PER_LAYER * len(responses),
-          f"{gemm} launched {counts[gemm]} < one prefill per request")
+    check(forwards["prefill"] == len(REQUESTS) + 1, f"forwards {dict(forwards)}")
+    check(counts[gemv] == (per + 1) * forwards["step"] + forwards["prefill"],
+          f"{gemv} launched {counts[gemv]}, not (28 * 4 + 1) per decode step and one (the "
+          f"lm_head) per prefill: {dict(forwards)}")
+    check(counts["flash_decode"] == LAYERS * forwards["step"],
+          f"flash_decode launched {counts['flash_decode']}, not 28 per decode step")
+    check(counts[gemm] == per * forwards["prefill"] + (per + 1) * forwards["verify"],
+          f"{gemm} launched {counts[gemm]}, not 28 * 4 per prefill and 28 * 4 + 1 per verify "
+          f"window: {dict(forwards)}")
     for other in PATH_KERNELS.values():
         if other != (gemv, gemm):
             check(counts[other[0]] == counts[other[1]] == 0,
@@ -689,6 +826,8 @@ def server(path: str, qtype: str) -> dict:
     print(f"after the requests: memory_allocated {torch.cuda.memory_allocated() / gib:.2f} GiB"
           f" (the runner keeps its KV cache), max_memory_allocated during the requests "
           f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    summary = {"ttfa_ms": ttfa * 1e3, "bracket": orpheus_bracket(runner, REQUESTS[2][1]["input"])}
+    print(json.dumps({f"orpheus_{qtype}": summary}))
     return counts
 
 
@@ -1357,6 +1496,301 @@ def parler() -> dict:
     return counts
 
 
+def _dia_staircase(cfg, rows):
+    """The sequential loop's input rows before each of `rows` [n, 9] (a
+    max_tokens that never starts the drain)."""
+    from tts_tpu_torch.models import dia as td
+
+    tokens, delay, _ = td.dia_init_loop_state(cfg)
+    ins = []
+    for i, row in enumerate(rows):
+        ins.append(tokens)
+        tokens, delay = td._drain_step(cfg, row, i + 1, delay, 10_000)
+    return np.stack(ins)
+
+
+def dia_tiny_cuda_vs_cpu(qtype: str):
+    """A 2+2-layer hidden-256 Dia with `qtype` encoder, embeddings and
+    decoder linears: the encoder and cross-KV (M = 2 x 128), 8
+    teacher-forced steps one per forward (M = 2) and 8 in one forward
+    (the verify, M = 16), on cuda (kernels) against the CPU (plain
+    versions, which the CPU tests hold to the JAX package): merged logits
+    within TINY_TOL of max |logit|, the cross K/V within DIA_CROSS_TOL of
+    their peaks; the DAC on 24 random frames within DAC_TOL."""
+    import torch
+
+    from tts_tpu_torch.convert.builder_codecs import DAC_44KHZ
+    from tts_tpu_torch.convert.builder_dia import DIA_1_6B, write_random_dia
+    from tts_tpu_torch.models import dia as td
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    path = write_random_dia(os.path.join(MODEL_DIR, f"tiny_dia_{qtype.lower()}.gguf"),
+                            qtype=qtype, dac=dict(DAC_44KHZ, **PARLER_TINY_DAC),
+                            **dict(DIA_1_6B, **DIA_TINY))
+    rng = np.random.default_rng(1)
+    codes = rng.integers(0, 1024, (24, 9)).astype(np.int32)
+    forced = rng.integers(0, 1024, (16, 9)).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = runner_from_file(path, device=dev)
+        key = "wq4" if qtype == "Q4_0" else "wq"
+        layer = r.params["decoder"]["layers"][0]
+        check(all(key in layer[n] for n in ("sa_q", "ca_k", "gate", "wo")),
+              f"tiny Dia {qtype}: decoder linears not packed as {key}")
+        ins = torch.from_numpy(_dia_staircase(r.cfg, forced)).to(dev)
+        with torch.inference_mode():
+            cross, _, _ = r._encode(td.tokenize_dia_sentence(DIA_TEXTS[0], r.cfg),
+                                    GenerationConfig())
+            logits = [td._dia_rows(r.params, r.cfg, ins[i:i + 1], i, r._cache, cross)
+                      for i in range(8)]
+            logits.append(td._dia_rows(r.params, r.cfg, ins[8:], 8, r._cache, cross))
+        eos = r.cfg.eos_token_id
+        out[dev] = {"logits": torch.cat(logits)[..., :eos + 1].float().cpu(),
+                    "masked": torch.cat(logits)[..., eos + 1:].cpu(),
+                    "k": cross["k"].cpu(), "v": cross["v"].cpu(), "audio": r.dac.decode(codes)}
+    a, b = out["cuda"], out["cpu"]
+    _, rel = rel_err(a["logits"], b["logits"])
+    cross = {k: rel_err(a[k], b[k])[1] for k in ("k", "v")}
+    same = (a["logits"].argmax(-1) == b["logits"].argmax(-1)).float().mean().item()
+    dac = float(np.abs(a["audio"] - b["audio"]).max())
+    print(f"tiny Dia {qtype} cuda vs cpu: 16 rows x 9 heads of merged logits (8 steps at M = 2, "
+          f"one 8-row verify at M = 16), rel {rel:.2e} (tol {TINY_TOL:.0e}), argmax agrees on "
+          f"{same:.1%}; cross K/V rel {cross['k']:.2e} / {cross['v']:.2e} (tol "
+          f"{DIA_CROSS_TOL:.1e}); DAC on 24 frames max abs diff {dac:.2e} (tol {DAC_TOL:.0e})")
+    check(bool(torch.isfinite(a["logits"]).all()), f"tiny Dia {qtype}: non-finite logits")
+    check(bool(torch.isneginf(a["masked"]).all()), f"tiny Dia {qtype}: ids past EOS not -inf")
+    check(rel < TINY_TOL, f"tiny Dia {qtype}: cuda vs cpu logits rel diff {rel} >= {TINY_TOL}")
+    check(max(cross.values()) < DIA_CROSS_TOL, f"tiny Dia {qtype}: cross K/V {cross}")
+    check(a["audio"].shape == (24 * 512,) and dac < DAC_TOL,
+          f"tiny Dia {qtype}: DAC cuda vs cpu {dac} >= {DAC_TOL}")
+
+
+def dia_models() -> dict:
+    """Seeded random full-width Dia-1.6B GGUFs, Q8_0 and Q4_0, under
+    smoke_models/."""
+    from tts_tpu_torch.convert.builder_dia import DIA_1_6B, write_random_dia
+
+    paths = {}
+    for qtype in QTYPES:
+        path = os.path.join(MODEL_DIR, f"dia_1_6b_{qtype[:2].lower()}_seed0.gguf")
+        t0 = time.perf_counter()
+        write_random_dia(path, seed=0, qtype=qtype, **DIA_1_6B)
+        print(f"wrote {os.path.relpath(path, ROOT)}: {os.path.getsize(path) / 1e9:.3f} GB in "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+        paths[qtype] = path
+    return paths
+
+
+def dia_bracket(runner, text: str) -> dict:
+    """Greedy steps/s of one DIA_BRACKET_TOKENS request decoded three ways after
+    the same encode: the speculative loop, its force_miss floor and the
+    sequential loop; the first row where each parts from the sequential
+    rows.  Launches made here are not counted for the path."""
+    import torch
+
+    from tts_tpu_torch.models import dia as td
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    cfg = runner.cfg
+    config = GenerationConfig(sample=False, seed=0, max_tokens=DIA_BRACKET_TOKENS)
+    ids = runner._prompt_ids(text, config)
+    rows, rates = {}, {}
+    for mode in ("spec", "force_miss", "sequential"):
+        with torch.inference_mode():
+            cross, _, state = runner._encode(ids, config)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "sequential":
+                got, _, _ = td.dia_decode_loop(runner.params, cfg, DIA_BRACKET_TOKENS,
+                                               cfg.max_generation_size, runner._cache, cross,
+                                               None, state, td.dia_init_loop_state(cfg),
+                                               do_sample=False)
+            else:
+                out, loop = td.dia_decode_loop_spec_resume(
+                    runner.params, cfg, DIA_BRACKET_TOKENS, cfg.max_generation_size, runner._cache,
+                    cross, td.dia_init_loop_state(cfg), runner._out_buffer(),
+                    force_miss=mode == "force_miss")
+                got = out[:loop[2]]
+            torch.cuda.synchronize()
+        rows[mode] = got
+        rates[mode] = len(got) / (time.perf_counter() - t0)
+    seq = rows["sequential"]
+    part = {m: _first_part(rows[m], seq) for m in ("spec", "force_miss")}
+    print(f"greedy bracket ({len(seq)} steps after a {len(ids)}-byte encode): "
+          + ", ".join(f"{m} {v:.1f} steps/s" for m, v in rates.items())
+          + f"; rows equal to the sequential loop's up to row {part['spec']} (spec), "
+          f"{part['force_miss']} (force_miss) of {len(seq)}")
+    return {"steps_per_s": rates, "steps": len(seq), "first_part_from_sequential": part}
+
+
+def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
+    """Serve one full-width Dia-1.6B: a sampled request, a greedy one (the
+    speculative loop), a PCM stream and a second sampled request, each
+    capped at DIA_MAX_TOKENS; returns the launch counts of that run (every
+    counter set to 0 just before it) and its metrics."""
+    phase(f"8 server, Dia-1.6B {qtype}")
+    import torch
+
+    from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
+    from tts_tpu_torch.models import dia as td
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    name = f"dia_1_6b_{qtype}"
+    state = ServerState({name: path}, GenerationConfig(top_k=50), 1, device="cuda")
+    t0 = time.perf_counter()
+    runner, _ = state._get_runner(name)
+    load_s = time.perf_counter() - t0
+    mib = 2**20
+    key = "wq4" if qtype == "Q4_0" else "wq"
+    layers = runner.params["decoder"]["layers"]
+    check(all(key in L[n] for L in layers for n in ("sa_q", "sa_k", "sa_v", "sa_o", "ca_q", "ca_k",
+                                                    "ca_v", "ca_o", "gate", "up", "wo")),
+          f"Dia {qtype}: decoder linears not packed as {key}")
+    check(runner.cfg.kv_dtype == "bfloat16"
+          and runner.params["decoder"]["heads"].dtype == torch.bfloat16,
+          f"Dia {qtype}: cache {runner.cfg.kv_dtype}, heads "
+          f"{runner.params['decoder']['heads'].dtype}")
+    load_mib = (torch.cuda.memory_allocated() - base) / mib
+    print(f"model load: {load_s:.2f} s  " + "  ".join(f"{k} {v:.2f}" for k, v in
+                                                     runner.load_timings.items())
+          + f"; memory_allocated {load_mib:.0f} MiB")
+    torch.cuda.reset_peak_memory_stats()
+    responses = []
+    generate = runner.generate
+
+    def recording_generate(text, config=None):
+        resp = generate(text, config)
+        responses.append(resp)
+        return resp
+
+    runner.generate = recording_generate
+    forwards, restore_rows = _counting(td, "_dia_rows", lambda p, c, rows, *a: (
+        "step" if rows.shape[0] == 1 else "verify"))
+    encodes, restore_cross = _counting(td, "dia_cross_kv", lambda *a: "encode")
+    srv = make_server(state, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    counters = launch_counters()
+    for kernel in counters.values():
+        kernel.launches = 0
+    summary = {"load_s": load_s, "load_timings": runner.load_timings, "load_mib": load_mib,
+               "requests": {}}
+    steps_want = DIA_MAX_TOKENS - 1           # the drain ends one step short of the cap
+    frames_want = steps_want - runner.cfg.max_delay
+
+    def speech(kind, payload):
+        t = time.perf_counter()
+        status, body, ctype = _post(port, {**payload, "max_tokens": DIA_MAX_TOKENS})
+        wall = time.perf_counter() - t
+        check(status == 200 and ctype == "audio/wav", f"{kind}: HTTP {status} {ctype}: "
+              f"{body[:200]!r}")
+        resp = responses[-1]
+        with wave.open(io.BytesIO(body)) as wf:
+            n = wf.getnframes()
+            check(wf.getframerate() == 44100, f"{kind}: rate {wf.getframerate()}")
+        steps, frames = resp.timings["decode_steps"], resp.timings["frames"]
+        check(steps == steps_want and frames == frames_want,
+              f"{kind}: {steps} steps and {frames} frames, not {steps_want} and {frames_want}")
+        check(n == len(resp.audio) == 512 * frames, f"{kind}: wav {n} samples, audio "
+              f"{len(resp.audio)}, {frames} frames")
+        check(bool(np.isfinite(resp.audio).all()), f"{kind}: non-finite audio")
+        check(float(np.abs(resp.audio).max()) > 0, f"{kind}: silent audio")
+        dec_s = resp.timings["decode_ms"] / 1e3
+        m = {"wall_ms": wall * 1e3, "encode_ms": resp.timings["encode_ms"],
+             "prompt_bytes": resp.timings["prompt_tokens"], "steps": steps,
+             "decode_steps_per_s": steps / dec_s, "codec_ms": resp.timings["codec_ms"],
+             "frames": frames, "audio_s": n / 44100, "rtf": wall / (n / 44100)}
+        print(f"{kind:15s} wall {wall * 1e3:8.1f} ms  encode {m['prompt_bytes']} bytes in "
+              f"{m['encode_ms']:6.1f} ms  decode {steps} steps in {dec_s * 1e3:8.1f} ms = "
+              f"{m['decode_steps_per_s']:6.1f} steps/s  codec {m['codec_ms']:6.1f} ms  "
+              f"{frames} frames, audio {m['audio_s']:.3f} s  RTF {m['rtf']:.3f}")
+        summary["requests"][kind] = m
+        return resp
+
+    try:
+        first = speech("sampled", {"input": DIA_TEXTS[0], "seed": 1})
+        speech("greedy (spec)", {"input": DIA_TEXTS[1], "sample": False})
+        check(forwards["verify"] > 0, "the greedy request ran no verify window")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/audio/speech",
+            data=json.dumps({"input": DIA_TEXTS[2], "max_tokens": DIA_MAX_TOKENS, "seed": 2,
+                             "response_format": "pcm"}).encode(),
+            headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            head = resp.read(2)
+            ttfa = time.perf_counter() - t
+            n = (len(head) + len(resp.read())) // 2
+        wall = time.perf_counter() - t
+        check(n == 512 * frames_want, f"pcm stream: {n} samples, not {512 * frames_want}")
+        summary["requests"]["stream"] = {"ttfa_ms": ttfa * 1e3, "wall_ms": wall * 1e3,
+                                         "audio_s": n / 44100, "rtf": wall / (n / 44100)}
+        print(f"pcm stream      TTFA {ttfa * 1e3:8.1f} ms  wall {wall * 1e3:8.1f} ms  audio "
+              f"{n / 44100:.3f} s  RTF {wall / (n / 44100):.3f}")
+        again = speech("sampled again", {"input": DIA_TEXTS[3], "seed": 3})
+        check(not (again.audio.shape == first.audio.shape
+                   and np.array_equal(again.audio, first.audio)),
+              "two sampled requests gave the same audio")
+        summary["max_memory_allocated_mib"] = (torch.cuda.max_memory_allocated() - base) / mib
+    finally:
+        counts = {k: c.launches for k, c in counters.items()}
+        restore_rows()
+        restore_cross()
+        runner.generate = generate
+        srv.shutdown()
+        srv.server_close()
+        stop_workers(state)
+    print(f"launches over the Dia {qtype} requests (forwards {dict(forwards)}, encodes "
+          f"{encodes['encode']}): {counts}")
+    per = DIA_LAYERS * DIA_LINEARS
+    gemm = PATH_KERNELS[qtype][1]
+    check(encodes["encode"] == 4, f"{encodes['encode']} encodes for 4 requests")
+    check(counts[gemm] == 2 * DIA_LAYERS * encodes["encode"]
+          + per * (forwards["step"] + forwards["verify"]),
+          f"{gemm} launched {counts[gemm]}, not 36 per request plus 162 per step and per "
+          f"verify window: {dict(forwards)}")
+    others = [k for k in counts if k != gemm]
+    check(not any(counts[k] for k in others), f"the Dia {qtype} path launched {counts}")
+    summary["forwards"] = dict(forwards)
+    print(f"max_memory_allocated during the requests {summary['max_memory_allocated_mib']:.0f} "
+          f"MiB over what was allocated before the load (weights, caches, activations)")
+    summary["bracket"] = dia_bracket(runner, DIA_TEXTS[1])
+    prof = _profile_request(runner, DIA_TEXTS[0],
+                            GenerationConfig(seed=1, top_k=50, max_tokens=DIA_PROFILE_TOKENS),
+                            f"dia_{qtype}")
+    print(json.dumps({f"dia_{qtype}_profile": prof}))
+    summary["profile"] = {k: prof[k] for k in ("wall_ms", "unprofiled_wall_ms", "device_busy_ms",
+                                               "device_busy_share",
+                                               "device_busy_share_of_unprofiled_wall",
+                                               "device_kernels")}
+    return counts, summary
+
+
+def dia() -> dict:
+    """Phase 8; returns the launch counts of each Dia path's served
+    requests."""
+    phase("8 Dia-1.6B: tiny models, cuda against cpu")
+    import torch
+
+    os.makedirs(MODEL_DIR, exist_ok=True)
+    for qtype in QTYPES:
+        dia_tiny_cuda_vs_cpu(qtype)
+    paths = dia_models()
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    counts, summary = {}, {}
+    for qtype in QTYPES:
+        counts[f"dia_{qtype}"], summary[qtype] = dia_server(paths[qtype], qtype)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    print(json.dumps({"dia": summary}))
+    return counts
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -1375,6 +1809,7 @@ def main() -> int:
     counts = {qtype: server(paths[qtype], qtype) for qtype in QTYPES}
     counts["kokoro"] = kokoro()
     counts.update(parler())
+    counts.update(dia())
     for r in results:
         path = next((q for q, ks in PATH_KERNELS.items() if r["name"] in ks), QTYPES[0])
         r["launches"] = counts[path][r["name"]]

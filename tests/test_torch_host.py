@@ -19,6 +19,7 @@ pytest.importorskip("jax")  # the reference; absent where only the port runs
 
 from tts_tpu.apps import server as jserver  # noqa: E402
 from tts_tpu.convert import builder_codecs as jcodecs  # noqa: E402
+from tts_tpu.convert import builder_dia as jdia  # noqa: E402
 from tts_tpu.convert import builder_kokoro as jbuilder  # noqa: E402
 from tts_tpu.convert import builder_parler as jparler  # noqa: E402
 from tts_tpu.convert import builder_t5 as jt5  # noqa: E402
@@ -33,6 +34,7 @@ from tts_tpu.text.tokenizers import UnigramTokenizer as JaxUnigramTokenizer  # n
 from tts_tpu.utils import audio as jaudio  # noqa: E402
 from tts_tpu_torch.apps import server as tserver  # noqa: E402
 from tts_tpu_torch.convert import builder_codecs as tcodecs  # noqa: E402
+from tts_tpu_torch.convert import builder_dia as tdia  # noqa: E402
 from tts_tpu_torch.convert import builder_kokoro as tbuilder  # noqa: E402
 from tts_tpu_torch.convert import builder_parler as tparler  # noqa: E402
 from tts_tpu_torch.convert import builder_t5 as tt5  # noqa: E402
@@ -138,6 +140,17 @@ def test_parler_builder_is_byte_identical(tmp_path, kwargs):
     want = jparler.write_parler_gguf(tmp_path / "jax.gguf", seed=4, **kwargs)
     got = tparler.write_parler_gguf(tmp_path / "port.gguf", seed=4, **kwargs)
     assert got.read_bytes() == want.read_bytes()
+
+
+@pytest.mark.parametrize("kwargs", [{}, dict(enc_layers=1, dec_layers=2, enc_hidden=256,
+                                             dec_hidden=256, enc_heads=4, dec_heads=4,
+                                             query_heads=2, head_size=128, ffn=512)],
+                         ids=["default", "tiny"])
+def test_dia_builder_is_byte_identical(tmp_path, kwargs):
+    want = jdia.write_dia_gguf(str(tmp_path / "jax.gguf"), seed=5, **kwargs)
+    got = tdia.write_dia_gguf(str(tmp_path / "port.gguf"), seed=5, **kwargs)
+    with open(got, "rb") as a, open(want, "rb") as b:
+        assert a.read() == b.read()
 
 
 @pytest.mark.parametrize("kwargs", [{}, dict(out_size=32, n_layers=1)], ids=["default", "out32"])

@@ -1,6 +1,7 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the card,
-at the Orpheus-3B shapes and at Parler-TTS mini v1's.  Every test here needs a CUDA device and skips
-without one; the file imports no jax, so it runs where only the port does:
+at the Orpheus-3B shapes and at Parler-TTS mini v1's and Dia-1.6B's.  Every
+test here needs a CUDA device and skips without one; the file imports no
+jax, so it runs where only the port does:
 
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -21,6 +22,12 @@ PARLER_SHAPES = [(1024, 1024), (1024, 4096), (4096, 1024)]
 # Parler's GEMM rows: the verify window (8), a prompt ("hello world" and
 # its EOS: 13 tokens), the 32-row encoding of the cross-KV precompute
 PARLER_GEMM_M = [8, 13, 32]
+# Dia-1.6B decoder linears (K, N): self q/o and cross q/o (2048, 2048), self
+# k/v (2048, 512), gate/up (2048, 8192), wo (8192, 2048); each runs at M = 2
+# (the CFG pair of a decode step) and 16 (an 8-row verify); the cross-KV's
+# k/v (1024, 2048) at M = 2 x 1024 (the encoder's full context)
+DIA_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+DIA_CROSS = (2048, 1024, 2048)
 # Orpheus-3B attention: Hq, Hkv, padded cache length
 HQ, HKV, S, HS = 24, 8, 3584, 128
 
@@ -436,6 +443,30 @@ def test_parler_gemm_matches_plain(cuda, K, N, M, packed):
     against the plain version within 1e-4, one launch counted, the shared
     kernel with gemm_plan's grid and the split-K pass where K splits."""
     w, sc = rand_weight(packed, K, N, cuda, K + 5 * N + M)
+    x = torch.randn((M, K), device=cuda)
+    fn = tq.qgemm_int4 if packed else tq.qgemm_int8
+    plain = tq.qgemm_int4_plain if packed else tq.qgemm_int8_plain
+    n = fn.launches
+    got = fn(x, w, sc)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    assert rel_err(got, plain(x, w, sc)) < 1e-4
+    m_tile, tile_n, splits, _ = tq.gemm_plan(M, K, N, _ext.sm_count(cuda.index or 0), packed)
+    acts = _ext.device_activity(lambda: fn(x, w, sc))
+    assert len(acts) == 1 + (splits > 1), acts
+    assert acts[0]["grid"] == [-(-N // tile_n), -(-M // m_tile), splits], acts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("M,K,N", [(M, K, N) for K, N in DIA_SHAPES for M in (2, 16)]
+                         + [DIA_CROSS])
+def test_dia_gemm_matches_plain(cuda, M, K, N, packed):
+    """Dia's decode step, verify and cross-KV pass the GEMMs f32 x (hi +
+    lo): against the plain version within 1e-4, one launch counted, the
+    shared kernel with gemm_plan's grid and the split-K pass where K
+    splits."""
+    w, sc = rand_weight(packed, K, N, cuda, K + 7 * N + M)
     x = torch.randn((M, K), device=cuda)
     fn = tq.qgemm_int4 if packed else tq.qgemm_int8
     plain = tq.qgemm_int4_plain if packed else tq.qgemm_int8_plain

@@ -2,10 +2,13 @@
 fresh interpreter whose import hook refuses `jax`, `jaxlib` and `tts_tpu`
 (and every submodule of them), import each module of tts_tpu_torch, serve
 test:dummy through the port's server, then write a tiny Q8_0 or Q4_0
-Orpheus, a tiny Kokoro, or a tiny Q8_0 or Q4_0 Parler and T5, with the
-port's own builders, load it and synthesize on the CPU."""
+Orpheus, a tiny Kokoro, a tiny Q8_0 or Q4_0 Parler and T5, or a tiny Q8_0
+or Q4_0 Dia, with the port's own builders, load it and synthesize on the
+CPU: greedy and sampled requests and a stream, for Orpheus a greedy stream
+on its speculative route."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -32,6 +35,7 @@ SCRIPT = textwrap.dedent("""
     import torch
     torch.set_num_threads(1)
     import tts_tpu_torch
+    from tts_tpu_torch.convert.builder_codecs import DAC_44KHZ
     for m in pkgutil.walk_packages(tts_tpu_torch.__path__, "tts_tpu_torch."):
         importlib.import_module(m.name)
     from torch_tiny import CTX, GEN, TINY
@@ -59,7 +63,6 @@ SCRIPT = textwrap.dedent("""
         assert r.architecture == "kokoro" and r.list_voices() == ["af_heart"]
         resp = r.generate("hello world", GenerationConfig(voice="af_heart", seed=0))
     elif qtype.startswith("parler"):
-        from tts_tpu_torch.convert.builder_codecs import DAC_44KHZ
         from tts_tpu_torch.convert.builder_parler import PARLER_MINI_V1, write_random_parler
         from tts_tpu_torch.convert.builder_t5 import write_t5_gguf
         dims = dict(PARLER_MINI_V1, n_layers=2, hidden=256, heads=4, ffn=512, prompt_vocab=64,
@@ -78,21 +81,54 @@ SCRIPT = textwrap.dedent("""
         assert stream.shape == resp.audio.shape and np.allclose(stream, resp.audio, atol=2e-5,
                                                                 rtol=0)
         assert len(greedy.audio) == len(resp.audio)
+    elif qtype.startswith("dia"):
+        from tts_tpu_torch.convert.builder_dia import DIA_1_6B, write_random_dia
+        dims = dict(DIA_1_6B, enc_layers=2, dec_layers=2, enc_hidden=256, dec_hidden=256,
+                    enc_heads=4, dec_heads=4, query_heads=2, enc_ffn=512, ffn=512, enc_ctx=128,
+                    max_gen=64)
+        dac = dict(DAC_44KHZ, latent=96, decoder_dim=48, channels=(48, 24, 12, 6))
+        path = write_random_dia(sys.argv[1], qtype=qtype.split("-")[1], dac=dac, **dims)
+        r = runner_from_file(str(path), device="cpu")
+        key = "wq4" if qtype.endswith("Q4_0") else "wq"
+        assert r.architecture == "dia" and key in r.params["decoder"]["layers"][0]["ca_k"]
+        greedy = r.generate("[S1] hi.", GenerationConfig(seed=0, max_tokens=24, sample=False))
+        resp = r.generate("[S1] hi.", GenerationConfig(seed=0, max_tokens=24, top_k=50))
+        stream = np.concatenate(list(r.generate_stream(
+            "[S1] hi.", GenerationConfig(seed=0, max_tokens=24, top_k=50), chunk_steps=5)))
+        assert stream.shape == resp.audio.shape and np.allclose(stream, resp.audio, atol=2e-5,
+                                                                rtol=0)
+        for out in (greedy, resp):
+            assert out.timings["decode_steps"] == 23 and 0 < out.timings["frames"] <= 8
+            assert len(out.audio) == 512 * out.timings["frames"]
     else:
-        path = write_random_orpheus(sys.argv[1], qtype=qtype, **TINY, vocab=156940,
-                                    snac_embd=96, snac_channels=(48, 24, 12, 6))
+        from tts_tpu_torch.models import orpheus
+        path = write_random_orpheus(sys.argv[1], qtype=qtype.split("-")[-1], **TINY,
+                                    vocab=156940, snac_embd=96, snac_channels=(48, 24, 12, 6))
         r = runner_from_file(str(path), device="cpu")
         r.cfg = dataclasses.replace(r.cfg, max_context_length=CTX, max_generation_size=GEN)
-        key = "wq4" if qtype == "Q4_0" else "wq"
+        key = "wq4" if qtype.endswith("Q4_0") else "wq"
         assert key in r.params["layers"][0]["qkv"] and key in r.params["head"]
-        resp = r.generate("hi", GenerationConfig(seed=0, max_tokens=15, top_k=50))
+        if qtype.startswith("orpheus-stream"):
+            calls = []
+            spec = orpheus.orpheus_decode_loop_spec_resume
+            orpheus.orpheus_decode_loop_spec_resume = (
+                lambda *a, **kw: calls.append(1) or spec(*a, **kw))
+            cfg = GenerationConfig(seed=0, max_tokens=15, sample=False)
+            stream = np.concatenate(list(r.generate_stream("hi", cfg, chunk_tokens=7)))
+            resp = r.generate("hi", cfg)
+            # two 7-token chunks after the prefill's token, and generate's call
+            assert len(calls) == 3 and stream.shape == resp.audio.shape
+            assert np.allclose(stream, resp.audio, atol=2e-5, rtol=0)
+        else:
+            resp = r.generate("hi", GenerationConfig(seed=0, max_tokens=15, top_k=50))
     loaded = sorted(m for m, v in sys.modules.items()
                     if m.split(".")[0] in BLOCKED and v is not None)
     print("AUDIO", len(resp.audio), bool(np.isfinite(resp.audio).all()), "BLOCKED", loaded)
 """)
 
 
-@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0", "kokoro", "parler-Q8_0", "parler-Q4_0"])
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0", "kokoro", "parler-Q8_0", "parler-Q4_0",
+                                   "dia-Q8_0", "dia-Q4_0", "orpheus-stream-Q8_0"])
 def test_port_runs_without_jax(tmp_path, qtype):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.path.join(ROOT, "tests"), os.environ.get("PYTHONPATH", "")]))
@@ -105,7 +141,13 @@ def test_port_runs_without_jax(tmp_path, qtype):
     # Orpheus: 15 tokens -> 2 frames of 4 * 512 samples; Kokoro: "hello
     # world" -> bos, 11 phoneme ids, eos at 3 frames each (sigmoid(-2.6) * 50
     # ~ 3.45 per token) of 600 samples; Parler: 15 rows -> 15 - 8 frames
-    # (the delay staircase) of 512 samples, every code an audio code
+    # (the delay staircase) of 512 samples, every code an audio code; Dia:
+    # 23 rows -> up to 23 - 15 frames of 512 samples (a sampled EOS or PAD
+    # drops its frame; the script checks the count)
+    if qtype.startswith("dia"):
+        audio = [line for line in lines if re.fullmatch(r"AUDIO \d+ True BLOCKED \[\]", line)]
+        assert len(audio) == 1 and int(audio[0].split()[1]) % 512 == 0, lines
+        return
     n = {"kokoro": 13 * 3 * 600, "parler-Q8_0": 7 * 512,
          "parler-Q4_0": 7 * 512}.get(qtype, (15 // 7) * 4 * 512)
     assert f"AUDIO {n} True BLOCKED []" in lines, lines

@@ -21,7 +21,7 @@ pytest.importorskip("jax")  # the reference; absent where only the port runs
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_tiny import CTX, GEN, QTYPES, write_tiny_orpheus  # noqa: E402
+from torch_tiny import CTX, GEN, QTYPES, orpheus_logits_along, write_tiny_orpheus  # noqa: E402
 from tts_tpu.codecs import snac as jsnac  # noqa: E402
 from tts_tpu.core.gguf import GGUFFile as JaxGGUFFile  # noqa: E402
 from tts_tpu.models import orpheus as jo  # noqa: E402
@@ -99,16 +99,20 @@ def _flatten(tree, out):
     return out
 
 
-def _port_logits_along(tparams, tcfg, prompt, stream):
-    """Teacher-forced port logits [len(stream), vocab]: row 0 from the
-    prompt's prefill, row i from decoding stream[i-1] after it."""
+def _port_verify_logits_along(tparams, tcfg, prompt, stream, width: int = 8):
+    """Teacher-forced port logits [len(stream), vocab] on the speculative
+    loop's path: row 0 from the prompt's prefill, then `width`-token verify
+    forwards along stream[:-1], whose lm_head is the M = 8 GEMM (f32 x)
+    where a sequential step's is the GEMV (x rounded to bf16)."""
     cache = to.init_kv_cache(tcfg)
-    rows = [to.orpheus_prefill(tparams, tcfg, torch.tensor(prompt), cache)]
-    for i, tok in enumerate(stream[:-1]):
-        rows.append(to.orpheus_decode_step(tparams, tcfg, torch.tensor([tok]),
-                                           torch.tensor([len(prompt) + i], dtype=torch.int32),
-                                           cache))
-    return torch.stack(rows)
+    rows = [to.orpheus_prefill(tparams, tcfg, torch.tensor(prompt), cache)[None]]
+    T = len(prompt)
+    for i in range(0, len(stream) - 1, width):
+        toks = torch.tensor(stream[i:min(i + width, len(stream) - 1)])
+        positions = torch.arange(T + i, T + i + len(toks), dtype=torch.int32)
+        x = to._orpheus_body(tparams, tcfg, toks, positions, cache, start=T + i)
+        rows.append(to._head_logits(x, tparams, tcfg))
+    return torch.cat(rows)
 
 
 def _assert_greedy_equal(logits, want) -> int:
@@ -165,7 +169,7 @@ def test_prefill_and_decode_logits_match_jax(tiny, qtype, head, kv):
                                jnp.asarray(T + i, jnp.int32), jcache)
         want.append(np.asarray(jl))
     want = np.stack(want)
-    got = _port_logits_along(tparams, tcfg, PROMPT, FORCED + [0]).numpy()
+    got = orpheus_logits_along(tparams, tcfg, PROMPT, FORCED + [0]).numpy()
     assert got.shape == want.shape == (9, tcfg.vocab_size)
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
 
@@ -185,7 +189,7 @@ def test_greedy_decode_loop_matches_jax(tiny, qtype):
         jax.random.PRNGKey(0), jo.init_state(1), max_steps=64, do_sample=False)
     want = [int(first)] + np.asarray(out)[: int(n)].tolist()
     assert len(want) == 41
-    agree = _assert_greedy_equal(_port_logits_along(tparams, tcfg, PROMPT, want), want)
+    agree = _assert_greedy_equal(orpheus_logits_along(tparams, tcfg, PROMPT, want), want)
 
     tcache = to.init_kv_cache(tcfg)
     tl = to.orpheus_prefill(tparams, tcfg, torch.tensor(PROMPT), tcache)
@@ -260,10 +264,12 @@ def test_loader_packs_q4_0_to_int4(tmp_path):
 
 @pytest.mark.parametrize("qtype", QTYPES)
 def test_generate_matches_jax(tiny, qtype, monkeypatch):
-    """runner.generate, greedy, against the JAX runner (whose speculative
-    loop emits its sequential loop's tokens): the same token ids up to the
-    first numerical tie, and the port's audio equals the JAX decoder's on
-    the port's tokens once the port's SNAC draws the JAX package's noise.
+    """runner.generate, greedy, against the JAX runner: both take their
+    speculative loop, so ties are read on the port's verify path (8-token
+    forwards, the lm_head a GEMM on f32 x, as JAX's verify runs it): the
+    same token ids up to the first numerical tie, and the port's audio
+    equals the JAX decoder's on the port's tokens once the port's SNAC
+    draws the JAX package's noise.
     113 tokens = 16 frames = 64 SNAC frames, one of JAX's frame buckets, so
     its decoder runs unpadded like the port's."""
     gguf = tiny(qtype)[0]
@@ -295,7 +301,7 @@ def test_generate_matches_jax(tiny, qtype, monkeypatch):
     prompt = (list(to.PREPENDED_TOKENS) + tr.tokenizer.tokenize("zoe: hi there")
               + list(to.APPENDED_TOKENS))
     assert got.timings["prompt_tokens"] == len(prompt)
-    agree = _assert_greedy_equal(_port_logits_along(tr.params, tr.cfg, prompt, jax_toks),
+    agree = _assert_greedy_equal(_port_verify_logits_along(tr.params, tr.cfg, prompt, jax_toks),
                                  jax_toks)
     assert port_toks[:agree] == jax_toks[:agree]
     assert got.audio.shape == want.audio.shape == (64 * 512,)

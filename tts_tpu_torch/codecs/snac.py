@@ -6,6 +6,8 @@ caller may supply; by default it is a seeded counter-based normal keyed on
 (seed, layer, absolute sample position), so a window decoded with context
 draws the same noise as the full decode.  It is not the JAX package's
 `jax.random` noise: tests inject those values to compare the two.
+`SNACDecoder.decode_window` decodes a bounded window of a stream, as the
+JAX package's does, for Orpheus's `generate_stream`.
 """
 
 from __future__ import annotations
@@ -163,6 +165,10 @@ class SNACDecoder:
     """Host wrapper: three token lists at rates x4/x2/x1 -> float32 PCM."""
 
     sample_rate = 24000
+    # ~12 fine-rate frames of receptive field per side (in-conv +/-3, layer-1
+    # residual units +/-39/8, transposed-conv kernels +/-~1 each, the rest
+    # sub-frame); 16 gives margin (tests hold a windowed decode to the full one)
+    RECEPTIVE_FRAMES = 16
 
     def __init__(self, cfg: SNACConfig, params: dict, device="cpu"):
         self.cfg = cfg
@@ -189,3 +195,25 @@ class SNACDecoder:
                                 torch.from_numpy(codes).to(self.device), seed,
                                 start_frame, noise)
         return audio.float().cpu().numpy()
+
+    def decode_window(self, heads: list, emit_start: int, emit_end: int,
+                      seed: int = 0) -> np.ndarray:
+        """The samples of fine-rate frames [emit_start, emit_end) of the
+        head streams `heads`, decoded from a window with RECEPTIVE_FRAMES of
+        context on both sides (its start aligned to the x4 head): O(chunk)
+        codec work per chunk.  With emission held RECEPTIVE_FRAMES behind
+        the frame head until a final flush (Orpheus's generate_stream), the
+        concatenated chunks equal one full decode: the noise is keyed by
+        absolute position, so a window draws the full decode's."""
+        total = len(heads[-1])
+        emit_end = min(emit_end, total)
+        if emit_end <= emit_start:
+            return np.zeros(0, np.float32)
+        start = max(0, emit_start - self.RECEPTIVE_FRAMES)
+        start -= start % 4
+        end = min(total, emit_end + self.RECEPTIVE_FRAMES)
+        window = [np.asarray(heads[i], np.int64)[start // rep:-(-end // rep)]
+                  for i, rep in enumerate(self.cfg.repeats)]
+        audio = self.decode(window, seed=seed, start_frame=start)
+        up = math.prod(self.cfg.strides)
+        return audio[(emit_start - start) * up:(emit_end - start) * up]

@@ -7,13 +7,22 @@ linears stay on the device with f16 block scales, as int8 (Q8_0 / Q5_0) or
 packed int4 (Q4_0), by `ops.qmatmul.linear_format`'s rule, and run through
 the hand-written kernels of `ops/qmatmul.py`; single-token attention runs
 the flash-decode kernel of `ops/attention.py` over a head-major bf16 (or
-int8) KV cache.  Decode is a host loop of eager steps that keeps the
-position on the device as an int32 tensor.
+int8) KV cache.
+
+Decode is a host loop, with the JAX runner's routes: sampled requests take
+the sequential loop of eager steps (the position stays on the device as an
+int32 tensor; each token is read back one step behind), greedy ones the
+speculative loop, which drafts by prompt lookup on the host
+(`ops.spec.ngram_drafts`), verifies 8 tokens in one forward at the live
+position and accepts the agreeing prefix, with one read of the window's
+argmaxes per forward.  `generate_stream` resumes either loop in 70-token
+chunks and decodes SNAC windows held RECEPTIVE_FRAMES behind the head.
+The cache is reused unzeroed: a forward reads only the slots it or an
+earlier one of its request wrote.
 
 Not ported: the prompt buckets (prefill runs the exact prompt length), the
-AOT export cache, the tensor-parallel shard_map islands (`make_tp_context`,
-`_tp_qlinear`, `_flash_decode_tp`), and, in this slice, the speculative
-greedy loop and `generate_stream`.
+AOT export cache, and the tensor-parallel shard_map islands
+(`make_tp_context`, `_tp_qlinear`, `_flash_decode_tp`).
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from tts_tpu_torch.models.registry import register_loader
 from tts_tpu_torch.ops.attention import S_CHUNK, arrival_counters, flash_decode, quantize_kv
 from tts_tpu_torch.ops.qmatmul import linear, linear_format, pack_q4_weight, pack_q8_weight
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
+from tts_tpu_torch.ops.spec import SPEC_K, ngram_drafts, spec_enabled
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSResponse, TTSRunner
 from tts_tpu_torch.text.tokenizers import BPETokenizer
 
@@ -187,8 +197,12 @@ def _rope(x: torch.Tensor, cos, sin) -> torch.Tensor:
 
 
 def _head_logits(x: torch.Tensor, params: dict, cfg: OrpheusConfig) -> torch.Tensor:
-    """lm_head on one row [H] -> [vocab] (slices off the tile padding)."""
-    return linear(x.float()[None], params["head"])[0, : cfg.vocab_size]
+    """lm_head on one row [H] -> [vocab] (the GEMV), or on the rows [T, H]
+    of a verify forward -> [T, vocab] (the GEMM); slices off the tile
+    padding."""
+    if x.ndim == 1:
+        return linear(x.float()[None], params["head"])[0, : cfg.vocab_size]
+    return linear(x.float(), params["head"])[:, : cfg.vocab_size]
 
 
 def padded_cache_length(cfg: OrpheusConfig) -> int:
@@ -225,19 +239,22 @@ def _gqa_attention(q, k, v, mask, cfg: OrpheusConfig):
 
 
 def _orpheus_body(params: dict, cfg: OrpheusConfig, tokens: torch.Tensor,
-                  positions: torch.Tensor, cache: dict) -> torch.Tensor:
+                  positions: torch.Tensor, cache: dict, start: int = 0) -> torch.Tensor:
     """tokens/positions [T] -> final-normed hidden [T, H] (bf16), writing K/V
     at `positions` into `cache` in place.  T == 1 is a decode step (flash
-    kernel; positions is the device int32 position); T > 1 is a prefill
-    from position 0 (positions == arange(T))."""
+    kernel; positions is the device int32 position); T > 1 runs at the
+    positions start..start+T-1 (the prefill from 0, a verify window) and
+    attends causally over the live slots [0, start + T) alone: slots past
+    them may hold a rejected draft's K/V and are never read."""
     T = tokens.shape[0]
     x = params["embd"][tokens.long()]
     quant = "ks" in cache
     Hq, Hkv, hs = cfg.n_attn_heads, cfg.n_kv_attn_heads, cfg.head_size
     cos, sin = _rope_tables(positions, params["rope_factors"], cfg.rope_theta, hs)
     slots = positions.long()
+    end = start + T
     if T > 1:
-        key_pos = torch.arange(T, device=x.device)
+        key_pos = torch.arange(end, device=x.device)
         mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, -1e9)
 
     for l, L in enumerate(params["layers"]):
@@ -267,10 +284,10 @@ def _orpheus_body(params: dict, cfg: OrpheusConfig, tokens: torch.Tensor,
             attn = flash_decode(q[0].float(), ck, cv, positions, cks if quant else None,
                                 cvs if quant else None, cache["counters"])
         elif quant:
-            attn = _gqa_attention(q, ck[:, :T].float() * cks[:, :T, None],
-                                  cv[:, :T].float() * cvs[:, :T, None], mask, cfg)
+            attn = _gqa_attention(q, ck[:, :end].float() * cks[:, :end, None],
+                                  cv[:, :end].float() * cvs[:, :end, None], mask, cfg)
         else:
-            attn = _gqa_attention(q, ck[:, :T], cv[:, :T], mask, cfg)
+            attn = _gqa_attention(q, ck[:, :end], cv[:, :end], mask, cfg)
         x = res + linear(attn.reshape(T, Hq * hs).to(x.dtype), L["o"]).to(x.dtype)
         res = x
         h = _rms(x, L["post_norm"])
@@ -346,6 +363,70 @@ def orpheus_decode_loop(params: dict, cfg: OrpheusConfig, first_token: torch.Ten
     return out, sampler_state
 
 
+def orpheus_decode_loop_spec_resume(params: dict, cfg: OrpheusConfig, token: int,
+                                    start_pos: int, i0: int, limit: int, cache: dict,
+                                    out: np.ndarray, *, k: int = SPEC_K,
+                                    force_miss: bool = False):
+    """The resumable greedy speculative loop: from emission index `i0`
+    (`token` the last token out, whose K/V the first window writes at
+    position start_pos) until index `limit` or the stop token.  Each iteration drafts k tokens
+    (`ngram_drafts` over `out`), verifies [token, drafts] in one forward at
+    positions pos..pos+k, and accepts the longest draft prefix that the
+    argmaxes agree with, plus the model's own next token, truncated at the
+    first stop token and at `limit`: the tokens are the model's greedy
+    outputs, the sequential loop's.  `force_miss` rejects every draft (id
+    -1 never equals an argmax; its embedding row wraps to the last, as
+    jax's gather does): one token per forward, the floor.
+
+    `out` [max_gen + k + 1] (numpy, stop-filled past the emitted tokens)
+    holds every token emitted after the prefill's and takes the new ones in
+    place, so the drafter keeps its history across chunks.  A `token` that
+    is the stop token emits nothing, as in the sequential loop.  K/V written
+    for rejected drafts sit past the accepted position and are written again
+    before a query reads them.  Returns (out, index after the last token,
+    position after it)."""
+    i, pos = i0, start_pos
+    device = params["embd"].device
+    rows = params["embd"].shape[0]
+    S = cache["k"].shape[2]
+    stop = cfg.stopping_token_id
+    while i < limit and token != stop:
+        drafts = (np.full(k, -1, np.int32) if force_miss
+                  else ngram_drafts(out, token, i, k))
+        w = min(k + 1, S - pos)          # a window never runs past the cache
+        toks = np.concatenate([[token], drafts])[:w] % rows
+        positions = torch.arange(pos, pos + w, dtype=torch.int32, device=device)
+        x = _orpheus_body(params, cfg, torch.from_numpy(toks).to(device), positions, cache,
+                          start=pos)
+        g = _head_logits(x, params, cfg).argmax(-1).to(torch.int32).cpu().numpy()
+        n_acc = int(np.cumprod(drafts[:w - 1] == g[:-1]).sum())
+        stops = np.nonzero(g[:n_acc + 1] == stop)[0]
+        n_emit = int(stops[0]) + 1 if len(stops) else n_acc + 1
+        n_emit = min(n_emit, limit - i)
+        out[i:i + n_emit] = g[:n_emit]
+        token = int(g[n_emit - 1])
+        i += n_emit
+        pos += n_emit
+    return out, i, pos
+
+
+def spec_out_buffer(cfg: OrpheusConfig, k: int = SPEC_K) -> np.ndarray:
+    """The speculative loop's token buffer: max_gen + k + 1 stop tokens."""
+    return np.full(cfg.max_generation_size + k + 1, cfg.stopping_token_id, np.int32)
+
+
+def orpheus_decode_loop_spec(params: dict, cfg: OrpheusConfig, first_token: int,
+                             start_pos: int, limit: int, cache: dict, *, k: int = SPEC_K,
+                             force_miss: bool = False) -> list[int]:
+    """Greedy speculative decode of up to `limit` tokens after `first_token`
+    (the prefill's), stopping at (and including) the stop token: the
+    sequential greedy loop's tokens."""
+    out, i, _ = orpheus_decode_loop_spec_resume(params, cfg, first_token, start_pos, 0, limit,
+                                                cache, spec_out_buffer(cfg, k), k=k,
+                                                force_miss=force_miss)
+    return out[:i].tolist()
+
+
 def redistribute_output_tokens(tokens: list[int], cfg: OrpheusConfig):
     """7-token frames -> 3 SNAC head streams; frames with out-of-range codes
     are dropped whole (cfg.lenient_codes folds them into range instead)."""
@@ -388,49 +469,137 @@ class OrpheusRunner(TTSRunner):
         self.device = torch.device(device if device is not None
                                    else embd.device if embd is not None else "cuda")
         self._cache = None
+        self.capture_trace = False
+        self.last_trace: dict = {}
         self.load_timings: dict = {}
 
     def list_voices(self):
         return list(ORPHEUS_VOICES)
 
-    def generate(self, text: str, config: GenerationConfig | None = None) -> TTSResponse:
-        config = config or GenerationConfig()
-        cfg = self.cfg
+    def _prompt_ids(self, text: str, config: GenerationConfig) -> list[int]:
         if config.voice and config.voice not in ORPHEUS_VOICES:
             raise TTSError(f"Voice '{config.voice}' is not a valid voice for Orpheus.")
-
-        t0 = time.perf_counter()
         sentence = f"{config.voice}: {text}" if config.voice else text
         ids = (list(PREPENDED_TOKENS) + self.tokenizer.tokenize(sentence)
                + list(APPENDED_TOKENS))
-        if len(ids) > cfg.max_context_length:
+        if len(ids) > self.cfg.max_context_length:
             raise TTSError("The prompt was too large for the default context "
                            "window. Try splitting up or shortening the prompt.")
+        return ids
+
+    def _sample_kw(self, config: GenerationConfig) -> dict:
+        return dict(temperature=config.temperature, top_k=config.top_k, top_p=config.top_p,
+                    repetition_penalty=config.repetition_penalty, do_sample=config.sample,
+                    use_top_p=config.top_p < 1.0)
+
+    def _prefill(self, ids: list[int], config: GenerationConfig):
+        """Prompt prefill and the first token; returns (prefill logits,
+        first token [1], generator, sampler state, max_steps)."""
+        cfg = self.cfg
         if self._cache is None:
             self._cache = init_kv_cache(cfg, self.device)
-        sample_kw = dict(temperature=config.temperature, top_k=config.top_k,
-                         top_p=config.top_p, repetition_penalty=config.repetition_penalty,
-                         do_sample=config.sample, use_top_p=config.top_p < 1.0)
+        logits = orpheus_prefill(self.params, cfg, torch.tensor(ids, device=self.device),
+                                 self._cache)
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(config.seed if config.seed is not None
+                              else np.random.randint(0, 2**31 - 1))
+        first, state = sample_tokens(generator, logits[None], init_state(1, self.device),
+                                     **self._sample_kw(config))
+        max_steps = min(config.max_tokens or cfg.max_generation_size, cfg.max_generation_size)
+        return logits, first, generator, state, max_steps
+
+    def generate_stream(self, text: str, config: GenerationConfig | None = None,
+                        chunk_tokens: int = 70):
+        """Yield audio as it is made: the loop runs `chunk_tokens` tokens at
+        a time (10 SNAC frames, ~0.85 s of audio) and the SNAC decodes
+        bounded windows held RECEPTIVE_FRAMES behind the frame head, with a
+        final flush, so the chunks concatenate to generate()'s audio for the
+        same tokens.  Greedy requests take the speculative loop chunk by
+        chunk (the carried token buffer keeps the drafter's history);
+        sampled ones the sequential loop, whose generator and sampler state
+        carry across chunks."""
+        config = config or GenerationConfig()
+        cfg = self.cfg
+        ids = self._prompt_ids(text, config)
+        stop = cfg.stopping_token_id
         with torch.inference_mode():
-            logits = orpheus_prefill(self.params, cfg,
-                                     torch.tensor(ids, device=self.device), self._cache)
+            _, first, generator, state, max_steps = self._prefill(ids, config)
+        outputs = [int(first[0])]
+        pos = len(ids)
+        spec = spec_enabled(config)
+        out_buf = spec_out_buffer(cfg) if spec else None
+        i_cum = 0
+        emitted = 0
+        seed = config.seed or 0
+        while outputs[-1] != stop and len(outputs) < max_steps:
+            budget = min(chunk_tokens, max_steps - len(outputs))
+            with torch.inference_mode():
+                if spec:
+                    out_buf, i_new, _ = orpheus_decode_loop_spec_resume(
+                        self.params, cfg, outputs[-1], pos, i_cum, i_cum + budget, self._cache,
+                        out_buf)
+                    new = out_buf[i_cum:i_new].tolist()
+                    i_cum = i_new
+                else:
+                    token = torch.tensor([outputs[-1]], dtype=torch.int32, device=self.device)
+                    new, state = orpheus_decode_loop(self.params, cfg, token, pos, budget,
+                                                     self._cache, generator, state,
+                                                     **self._sample_kw(config))
+            outputs.extend(new)
+            pos += len(new)
+            heads = redistribute_output_tokens([t for t in outputs if t != stop], cfg)
+            target = len(heads[-1]) - self.snac.RECEPTIVE_FRAMES
+            if target > emitted:
+                audio = self.snac.decode_window(heads, emitted, target, seed=seed)
+                emitted = target
+                if len(audio):
+                    yield audio
+            if len(new) < budget:
+                break
+        heads = redistribute_output_tokens([t for t in outputs if t != stop], cfg)
+        if len(heads[-1]) > emitted:
+            audio = self.snac.decode_window(heads, emitted, len(heads[-1]), seed=seed)
+            if len(audio):
+                yield audio
+
+    def generate(self, text: str, config: GenerationConfig | None = None) -> TTSResponse:
+        config = config or GenerationConfig()
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        ids = self._prompt_ids(text, config)
+        with torch.inference_mode():
+            logits, first, generator, state, max_steps = self._prefill(ids, config)
             _sync(self.device)
             t_prefill = time.perf_counter()
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(config.seed if config.seed is not None
-                                  else np.random.randint(0, 2**31 - 1))
-            first, state = sample_tokens(generator, logits[None], init_state(1, self.device),
-                                         **sample_kw)
-            max_steps = min(config.max_tokens or cfg.max_generation_size,
-                            cfg.max_generation_size)
-            rest, _ = orpheus_decode_loop(self.params, cfg, first, len(ids), max_steps - 1,
-                                          self._cache, generator, state, **sample_kw)
+            if spec_enabled(config):
+                rest = orpheus_decode_loop_spec(self.params, cfg, int(first[0]), len(ids),
+                                                max_steps - 1, self._cache)
+            else:
+                rest, _ = orpheus_decode_loop(self.params, cfg, first, len(ids), max_steps - 1,
+                                              self._cache, generator, state,
+                                              **self._sample_kw(config))
         outputs = [int(first[0])] + rest
         t_decode = time.perf_counter()
 
+        raw = list(outputs)
         while outputs and outputs[-1] == cfg.stopping_token_id:
             outputs = outputs[:-1]
         heads = redistribute_output_tokens(outputs, cfg)
+        if self.capture_trace:
+            from tts_tpu_torch.utils.trace import logit_stats
+
+            stop = cfg.stopping_token_id
+            self.last_trace = {
+                "prompt_ids": ids[:24],
+                "n_prompt_tokens": len(ids),
+                "step0_logits": logit_stats(logits.float().cpu().numpy()),
+                "first_token": int(first[0]),
+                "tokens_first": outputs[:32],
+                "n_tokens": len(outputs),
+                "eos_step": raw.index(stop) if stop in raw else -1,
+                "head_lengths": [int(len(h)) for h in heads],
+                "head_streams": [h[:16].tolist() for h in heads],
+            }
         audio = self.snac.decode(heads, seed=config.seed or 0)
         t_end = time.perf_counter()
         return TTSResponse(

@@ -45,8 +45,7 @@ import torch.nn.functional as F
 from tts_tpu_torch.codecs.dac import DACDecoder
 from tts_tpu_torch.core.gguf import GGMLType, GGUFFile, GGUFTensor
 from tts_tpu_torch.models.registry import register_loader
-from tts_tpu_torch.ops.qmatmul import (apply_linear, linear_format, pack_q4_weight,
-                                       pack_q8_weight)
+from tts_tpu_torch.ops.qmatmul import apply_linear, load_linear
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_draft_rows, spec_enabled
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSResponse, TTSRunner
@@ -127,19 +126,8 @@ def load_parler_params(tensors: dict, cfg: ParlerConfig, device="cpu",
         return out
 
     def lin(name):
-        t = raw(name)
-        fmt = linear_format(t)
-        if fmt == "wq4":
-            return pack_q4_weight(t, device=device, timings=timings)
-        if fmt == "wq":
-            t0 = time.perf_counter()
-            p = pack_q8_weight(t)
-            t1 = time.perf_counter()
-            out = {k: torch.from_numpy(v).to(device) for k, v in p.items()}
-            timings["pack_s"] += t1 - t0
-            timings["upload_s"] += time.perf_counter() - t1
-            return out
-        return {"w": get(name).t().contiguous()}
+        packed = load_linear(raw(name), device, timings)
+        return packed if packed is not None else {"w": get(name).t().contiguous()}
 
     n_heads = cfg.n_output_heads
     p = {"prompt_embd": get("decoder.embed_prompts"),

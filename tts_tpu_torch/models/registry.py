@@ -33,7 +33,8 @@ def runner_from_file(path: str, config: GenerationConfig | None = None,
                      device="cuda") -> TTSRunner:
     """Load a GGUF model file onto `device` and return its runner.  A CUDA
     device with no card raises TTSError: nothing falls back to the CPU."""
-    import tts_tpu_torch.models.dummy  # noqa: F401  (register their loaders)
+    import tts_tpu_torch.models.dia  # noqa: F401  (register their loaders)
+    import tts_tpu_torch.models.dummy  # noqa: F401
     import tts_tpu_torch.models.kokoro_runner  # noqa: F401
     import tts_tpu_torch.models.orpheus  # noqa: F401
     import tts_tpu_torch.models.parler  # noqa: F401

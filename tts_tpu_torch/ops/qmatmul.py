@@ -128,6 +128,27 @@ def pack_q4_weight(tensor, pad_n: bool = False, tile_n: int = 256, device="cpu",
     return {"wq4": wq4, "scales": scales}
 
 
+def load_linear(tensor, device="cpu", timings: dict | None = None) -> dict | None:
+    """A GGUF linear [out, in] as `linear_format` stores it on `device`:
+    {"wq", "scales"} (int8, packed on the host) or {"wq4", "scales"}
+    (packed int4, unpacked on `device`); None for a dense one, which the
+    caller loads.  `timings`, if given, adds packing and upload seconds
+    to "pack_s" and "upload_s"."""
+    timings = {} if timings is None else timings
+    fmt = linear_format(tensor)
+    if fmt == "wq4":
+        return pack_q4_weight(tensor, device=device, timings=timings)
+    if fmt != "wq":
+        return None
+    t0 = time.perf_counter()
+    p = pack_q8_weight(tensor)
+    t1 = time.perf_counter()
+    out = {k: torch.from_numpy(v).to(device) for k, v in p.items()}
+    timings["pack_s"] = timings.get("pack_s", 0.0) + t1 - t0
+    timings["upload_s"] = timings.get("upload_s", 0.0) + time.perf_counter() - t1
+    return out
+
+
 # ---------------------------------------------------------- plain versions ---
 def _expand_scales(scales: torch.Tensor) -> torch.Tensor:
     return scales.float().repeat_interleave(QBLOCK, dim=0)
