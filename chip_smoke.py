@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of tts_tpu_torch on one CUDA card: the quickest proof that the
-port builds, that its kernels agree with their plain versions, and that its
+port builds, that its kernels agree with their plain versions, that its
 server answers requests from full-width Orpheus-3B, Parler-TTS mini v1 and
-Dia-1.6B models with Q8_0 and with Q4_0 linears, and from Kokoro-82M.
+Dia-1.6B models with Q8_0 and with Q4_0 linears, and from Kokoro-82M, and
+that its command-line apps (quantize, cli, perf_battery, phonemize) run the
+same models.
 
     python3 chip_smoke.py
 
@@ -79,6 +81,18 @@ Phases (any failure exits non-zero, before the final line):
      format's GEMM 36 per request (the cross-KV) plus 162 per step and per
      verify window, the GEMVs, flash_decode and the other GEMM 0; then the
      greedy bracket and one profiled request
+  9. the apps on the card: a seeded random full-width f32 Parler-TTS mini v1
+     quantized to Q4_0 and Q8_0 by `python -m tts_tpu_torch.apps.quantize`
+     (the printed counts held to the Parler rule's, host seconds); the cli
+     (tts_tpu_torch.apps.cli.main) in this process on each, 256 rows, and on
+     the Q4_0 one again with --conditional-prompt and phase 7's T5, then on
+     phase 5's Orpheus-3B Q4_0 with --vad (WAV rate and length held to the
+     response; launches exact: the format's GEMV 192 per Parler row and GEMM
+     192 per prefill, Orpheus 113 GEMVs and 28 flash_decode per step and 112
+     GEMMs per prefill, everything else 0); `python -m tts_tpu_torch.apps.cli`
+     once as its own process; perf_battery's JSON line on phase 6's
+     Kokoro-82M and its Q8_0 (30 sentences, warmup 1, no kernel launched);
+     phonemize against the runner's own phonemizer
 The line before the last is a JSON object of per-kernel results (each
 kernel's launches on its Orpheus path, and by path); the last is
 {"ok": true, "device": {...}}.  It imports only tts_tpu_torch, and fails if
@@ -207,6 +221,9 @@ REQUESTS = (
 )
 
 
+_START = time.perf_counter()
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -217,7 +234,7 @@ def check(cond: bool, msg: str):
 
 
 def phase(name: str):
-    print(f"\n=== {name} ===", flush=True)
+    print(f"\n=== {name} === (at {time.perf_counter() - _START:.0f} s)", flush=True)
 
 
 # ---------------------------------------------------------------- timing ---
@@ -1791,6 +1808,362 @@ def dia() -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ apps ---
+# phase 9: the port's apps on the models phases 5-7 wrote
+APPS_ORPHEUS_TOKENS = 280          # the cli's Orpheus request, as phase 5's
+APPS_PROCESS_TIMEOUT = 600         # seconds, for each app run as its own process
+# the perf_battery report (tts_tpu/apps/perf_battery.py's keys)
+BATTERY_KEYS = {"model", "sentences", "mean_generation_ms", "median_generation_ms",
+                "mean_codec_ms", "total_audio_seconds", "real_time_factor",
+                "p50_time_to_first_audio_ms"}
+PHONEMIZE_TEXTS = (HARVARD[0], "It's 42 degrees at 7:30, Dr. Smith.",
+                   "The NASA probe sent 1,024 frames in 2026!")
+
+
+def _kernel_counts() -> dict:
+    return {k: c.launches for k, c in launch_counters().items()}
+
+
+def _run_python(argv: list[str]) -> tuple[str, float]:
+    """`python argv` as its own process from the repo root (its stderr
+    passed through); returns (stdout, host seconds).  Fails on a non-zero
+    exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=ROOT, capture_output=True, text=True,
+                          timeout=APPS_PROCESS_TIMEOUT)
+    secs = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"python {' '.join(argv[:2])}: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout, secs
+
+
+def _cli_stages(stdout: str) -> dict:
+    """The cli's `<stage> = <value> ms` lines as {stage: value}."""
+    out = {}
+    for line in stdout.splitlines():
+        key, sep, rest = line.partition(" = ")
+        if sep and rest.endswith(" ms"):
+            out[key] = float(rest[:-3])
+    return out
+
+
+def _run_cli(argv: list[str]) -> tuple[str, object, object]:
+    """tts_tpu_torch.apps.cli.main(argv) in this process, its stdout echoed;
+    returns (stdout, the runner, the response its generate returned).  The
+    registry's runner_from_file is wrapped to record them; the cli calls
+    nothing else differently."""
+    import contextlib
+
+    from tts_tpu_torch.apps import cli
+    from tts_tpu_torch.models import registry
+
+    seen = {}
+    load = registry.runner_from_file
+
+    def recording_load(*args, **kw):
+        runner = seen["runner"] = load(*args, **kw)
+        generate = runner.generate
+
+        def recording_generate(text, config=None):
+            resp = seen["resp"] = generate(text, config)
+            return resp
+        runner.generate = recording_generate
+        return runner
+
+    registry.runner_from_file = recording_load
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        registry.runner_from_file = load
+    print("  " + buf.getvalue().rstrip().replace("\n", "\n  "))
+    check(rc == 0, f"cli {argv}: exit {rc}")
+    return buf.getvalue(), seen["runner"], seen["resp"]
+
+
+def _check_wav(path: str, rate: int, samples: int, label: str):
+    with wave.open(path) as wf:
+        check(wf.getframerate() == rate, f"{label}: rate {wf.getframerate()}, not {rate}")
+        check(wf.getnframes() == samples > 0, f"{label}: {wf.getnframes()} samples in the "
+              f"WAV, not {samples}")
+
+
+def apps_quantize_parler(card: str) -> tuple[dict, dict]:
+    """Write the f32 full-width Parler-TTS mini v1 and quantize it to Q8_0
+    and Q4_0 by `python -m tts_tpu_torch.apps.quantize`; the printed counts
+    must be the Parler rule's for the file.  Returns ({qtype: path},
+    metrics)."""
+    from tts_tpu_torch.apps import quantize
+    from tts_tpu_torch.convert.builder_parler import PARLER_MINI_V1, write_random_parler
+    from tts_tpu_torch.core.gguf import GGMLType, GGUFFile
+
+    f32 = os.path.join(MODEL_DIR, "parler_mini_v1_f32_seed0.gguf")
+    t0 = time.perf_counter()
+    write_random_parler(f32, seed=0, qtype="F32", **PARLER_MINI_V1)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(f32)
+    print(f"[{card}] wrote {os.path.relpath(f32, ROOT)}: {size / 1e9:.3f} GB in "
+          f"{write_s:.1f} host s")
+    metrics = {"f32_gb": size / 1e9, "f32_write_host_s": write_s}
+    with GGUFFile(f32) as f:
+        rule = quantize._QUANTIZABLE[f.architecture]
+        rows = [(n, t.ggml_type, t.n_elements, t.shape[-1]) for n, t in f.tensors.items()]
+    paths = {}
+    for qtype in QTYPES:
+        params = quantize.QuantizationParams(quantize.VALID_TYPES[qtype])
+        n_quant = sum(1 for name, ggml_type, n, last in rows
+                      if ggml_type == GGMLType.F32 and rule(name, params)
+                      and n % 32 == 0 and last % 32 == 0)
+        check(n_quant == PARLER_LAYERS * PARLER_LINEARS, f"the Parler rule quantizes {n_quant} "
+              f"tensors, not the {PARLER_LINEARS} decoder linears per layer")
+        out = os.path.join(MODEL_DIR, f"parler_mini_v1_f32_to_{qtype[:2].lower()}.gguf")
+        stdout, secs = _run_python(["-m", "tts_tpu_torch.apps.quantize", "--model-path", f32,
+                                    "--quantized-model-path", out, "--quantized-type", qtype])
+        want = f"quantized={n_quant} f16=0 passthrough={len(rows) - n_quant} -> {out}"
+        check(stdout.strip() == want, f"quantize {qtype} printed {stdout.strip()!r}, not "
+              f"{want!r}")
+        print(f"[{card}] quantize {qtype}: {stdout.strip().split(' -> ')[0]}, "
+              f"{os.path.getsize(out) / 1e9:.3f} GB in {secs:.1f} host s (a process of its "
+              f"own: interpreter and torch import, read, quantize, write)")
+        metrics[f"quantize_{qtype}_host_s"] = secs
+        metrics[f"{qtype}_gb"] = os.path.getsize(out) / 1e9
+        paths[qtype] = out
+    os.remove(f32)
+    return paths, metrics
+
+
+def apps_cli_parler(card: str, path: str, qtype: str,
+                    t5_path: str | None) -> tuple[dict, dict]:
+    """The cli in this process on a quantized Parler: one request of
+    PARLER_MAX_TOKENS rows, and with `t5_path` a second one after
+    --conditional-prompt.  Launches exact: the format's GEMV 192 per row
+    (8 quantized linears in each of 24 layers; the default quantize keeps
+    the cross-attention k/v dense, so the cross-KV and the T5 encoding run
+    no kernel) and its GEMM 192 per prefill; everything else 0."""
+    import torch
+
+    wav = os.path.join(MODEL_DIR, f"apps_parler_{qtype}.wav")
+    base = ["--model-path", path, "--prompt", PARLER_TEXTS[0], "--save-path", wav,
+            "--max-tokens", str(PARLER_MAX_TOKENS), "--seed", "0"]
+    runs = [("plain", base)]
+    if t5_path:
+        runs.append(("conditional-prompt", base + ["--conditional-prompt", PARLER_DESCRIPTION,
+                                                   "--text-encoder-path", t5_path]))
+    for kernel in launch_counters().values():
+        kernel.launches = 0
+    rows, metrics, audio = 0, {}, {}
+    for label, argv in runs:
+        stdout, runner, resp = _run_cli(argv)
+        stages = _cli_stages(stdout)
+        steps, frames = resp.timings["decode_steps"], resp.timings["frames"]
+        check(stages["decode_steps"] == steps == PARLER_MAX_TOKENS,
+              f"cli {qtype} {label}: {steps} rows")
+        check(stages["frames"] == frames and len(resp.audio) == 512 * frames,
+              f"cli {qtype} {label}: {len(resp.audio)} samples for {frames} frames")
+        check(resp.timings["prompt_tokens"] in parler_gemm_lengths(),
+              f"cli {qtype} {label}: prefill M={resp.timings['prompt_tokens']} was not checked "
+              f"in phase 3")
+        _check_wav(wav, 44100, len(resp.audio), f"cli {qtype} {label}")
+        check(f"wrote {len(resp.audio)} samples" in stdout, f"cli {qtype} {label}: no wrote line")
+        check(bool(np.isfinite(resp.audio).all()) and float(np.abs(resp.audio).max()) > 0,
+              f"cli {qtype} {label}: non-finite or silent audio")
+        key = "wq4" if qtype == "Q4_0" else "wq"
+        layer = runner.params["layers"][0]
+        check(all(key in layer[n] for n in ("sa_q", "ca_q", "fc1", "fc2"))
+              and "w" in layer["ca_k"] and "w" in layer["ca_v"],
+              f"cli {qtype}: linears not as the quantize rule left them")
+        rtf = float(next(line for line in stdout.splitlines()
+                         if line.startswith("rtf = ")).split()[2])
+        dec_s = resp.timings["decode_ms"] / 1e3
+        metrics[label] = {"rtf_incl_load": rtf, "decode_rows_per_s": steps / dec_s,
+                          "rows": steps, "audio_s": resp.duration_s,
+                          "load_s": runner.load_timings.get("total_s")}
+        print(f"[{card}] cli Parler {qtype} {label}: {steps} rows at {steps / dec_s:.1f} rows/s, "
+              f"{resp.duration_s:.3f} s of audio, rtf {rtf:.4f} (the cli's line: host wall of "
+              f"main() incl. model load {runner.load_timings.get('total_s', 0):.2f} s; the "
+              f"kernels were built in phase 2)")
+        rows += steps
+        audio[label] = resp.audio
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    if t5_path:
+        check(not (audio["plain"].shape == audio["conditional-prompt"].shape
+                   and np.array_equal(audio["plain"], audio["conditional-prompt"])),
+              "cli: the conditional prompt did not change the audio")
+    counts = _kernel_counts()
+    per = PARLER_LAYERS * PARLER_LINEARS
+    gemv, gemm = PATH_KERNELS[qtype]
+    want = {k: 0 for k in counts}
+    want[gemv], want[gemm] = per * rows, per * len(runs)
+    print(f"launches over the cli's Parler {qtype} runs ({rows} rows, {len(runs)} prefills): "
+          f"{counts}")
+    check(counts == want, f"cli Parler {qtype}: launches {counts}, not {want}")
+    return counts, metrics
+
+
+def apps_cli_orpheus(card: str, path: str) -> tuple[dict, dict]:
+    """The cli in this process on phase 5's Orpheus-3B Q4_0 with --vad,
+    APPS_ORPHEUS_TOKENS tokens sampled (the sequential loop): launches
+    exact against the forwards it ran, as in phase 5."""
+    from tts_tpu_torch.models import orpheus as tor
+    from tts_tpu_torch.runtime.vad import trim_silence
+
+    kind, payload = REQUESTS[0]
+    wav = os.path.join(MODEL_DIR, "apps_orpheus_q4.wav")
+    forwards, restore = _counting(tor, "_orpheus_body", lambda p, c, tokens, positions, cache,
+                                  start=0: "step" if tokens.shape[0] == 1
+                                  else "verify" if start else "prefill")
+    for kernel in launch_counters().values():
+        kernel.launches = 0
+    try:
+        stdout, runner, resp = _run_cli(["--model-path", path, "--prompt", payload["input"],
+                                         "--voice", payload["voice"], "--save-path", wav,
+                                         "--max-tokens", str(APPS_ORPHEUS_TOKENS), "--seed", "0",
+                                         "--vad"])
+    finally:
+        counts = _kernel_counts()
+        restore()
+    steps = resp.timings["decode_steps"]
+    check(steps == APPS_ORPHEUS_TOKENS and len(resp.audio) == (steps // 7) * 4 * 512,
+          f"cli Orpheus: {len(resp.audio)} samples for {steps} tokens")
+    check(resp.timings["prompt_tokens"] in prompt_lengths(),
+          f"cli Orpheus: prefill M={resp.timings['prompt_tokens']} was not checked in phase 3")
+    trimmed = trim_silence(resp.audio, 24000)
+    _check_wav(wav, 24000, len(trimmed), "cli Orpheus --vad")
+    check(f"wrote {len(trimmed)} samples" in stdout, "cli Orpheus: no wrote line")
+    check(dict(forwards) == {"prefill": 1, "step": steps - 1},
+          f"cli Orpheus: forwards {dict(forwards)} for {steps} tokens")
+    per = LAYERS * LINEARS_PER_LAYER
+    want = {k: 0 for k in counts}
+    want.update(qgemv_int4=(per + 1) * (steps - 1) + 1, qgemm_int4=per,
+                flash_decode=LAYERS * (steps - 1))
+    print(f"launches over the cli's Orpheus Q4_0 run ({steps} tokens, forwards "
+          f"{dict(forwards)}): {counts}")
+    check(counts == want, f"cli Orpheus: launches {counts}, not {want}")
+    rtf = float(next(line for line in stdout.splitlines()
+                     if line.startswith("rtf = ")).split()[2])
+    dec_s = resp.timings["decode_ms"] / 1e3
+    metrics = {"rtf_incl_load": rtf, "decode_tok_per_s": steps / dec_s, "tokens": steps,
+               "audio_s": resp.duration_s, "vad_kept_s": len(trimmed) / 24000,
+               "load_s": runner.load_timings.get("total_s")}
+    print(f"[{card}] cli Orpheus-3B Q4_0 --vad: {steps} tokens at {steps / dec_s:.1f} tok/s, "
+          f"{resp.duration_s:.3f} s of audio, {len(trimmed) / 24000:.3f} s kept by the VAD, rtf "
+          f"{rtf:.4f} (host wall of main() incl. model load {metrics['load_s']:.2f} s)")
+    return counts, metrics
+
+
+def apps_cli_process(card: str, path: str) -> dict:
+    """`python -m tts_tpu_torch.apps.cli` as its own process on the Q4_0
+    Parler (default --device cuda): exit 0, the rtf line and the WAV."""
+    wav = os.path.join(MODEL_DIR, "apps_parler_process.wav")
+    stdout, secs = _run_python(["-m", "tts_tpu_torch.apps.cli", "--model-path", path,
+                                "--prompt", PARLER_TEXTS[0], "--save-path", wav,
+                                "--max-tokens", str(PARLER_MAX_TOKENS), "--seed", "0"])
+    print("  " + stdout.rstrip().replace("\n", "\n  "))
+    stages = _cli_stages(stdout)
+    rtf_lines = [line for line in stdout.splitlines() if line.startswith("rtf = ")]
+    check(len(rtf_lines) == 1, "python -m tts_tpu_torch.apps.cli printed no rtf line")
+    check(stages.get("decode_steps") == PARLER_MAX_TOKENS, f"cli process: {stages}")
+    _check_wav(wav, 44100, 512 * int(stages["frames"]), "cli process")
+    rtf = float(rtf_lines[0].split()[2])
+    # what a fresh process pays before any model work, inside main() (which
+    # imports torch lazily, as JAX's cli imports jax): the torch import and
+    # the CUDA context
+    probe, _ = _run_python(["-c", "import time; t0 = time.perf_counter(); import torch; "
+                            "t1 = time.perf_counter(); torch.zeros(1, device='cuda'); "
+                            "torch.cuda.synchronize(); print(t1 - t0, time.perf_counter() - t1)"])
+    import_s, cuda_s = map(float, probe.split())
+    print(f"[{card}] python -m tts_tpu_torch.apps.cli (Parler Q4_0): rtf {rtf:.4f} (main()'s host "
+          f"wall over the audio: the torch import, the CUDA context, the model load, the "
+          f"request), {secs:.1f} host s for the whole process; a fresh process's torch import "
+          f"takes {import_s:.2f} host s and its first CUDA tensor {cuda_s:.2f} host s")
+    return {"rtf_incl_load": rtf, "process_host_s": secs, "torch_import_host_s": import_s,
+            "cuda_init_host_s": cuda_s}
+
+
+def apps_battery(card: str) -> tuple[dict, dict]:
+    """perf_battery's JSON line on phase 6's Kokoro-82M and on its Q8_0 by
+    the port's quantize: 30 sentences, warmup 1; the five kernels launch 0
+    times."""
+    from tts_tpu_torch.apps import perf_battery, quantize
+
+    f32 = os.path.join(MODEL_DIR, "kokoro82m_seed0.gguf")
+    q8 = os.path.join(MODEL_DIR, "kokoro82m_q8_seed0.gguf")
+    t0 = time.perf_counter()
+    stats = quantize.quantize_gguf(f32, q8, quantize.QuantizationParams(
+        quantize.VALID_TYPES["Q8_0"]))
+    print(f"[{card}] quantize Kokoro-82M Q8_0 in this process: {stats}, "
+          f"{time.perf_counter() - t0:.1f} host s")
+    check(stats["quantized"] > 0, "Kokoro Q8_0: nothing quantized")
+    for kernel in launch_counters().values():
+        kernel.launches = 0
+    import contextlib
+
+    reports = {}
+    for name, path in (("f32", f32), ("Q8_0", q8)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = perf_battery.main(["--model-path", path, "--json", "--warmup", "1"])
+        lines = buf.getvalue().splitlines()
+        check(rc == 0 and len(lines) == 1, f"perf_battery {name}: exit {rc}, {len(lines)} lines")
+        report = json.loads(lines[0])
+        check(set(report) == BATTERY_KEYS, f"perf_battery {name}: keys {sorted(report)}")
+        check(report["sentences"] == 30 and math.isfinite(report["real_time_factor"])
+              and report["real_time_factor"] > 0, f"perf_battery {name}: {report}")
+        print(f"[{card}] perf_battery Kokoro-82M {name}: {lines[0]}")
+        reports[name] = report
+    counts = _kernel_counts()
+    check(not any(counts.values()), f"the battery launched {counts}")
+    return counts, reports
+
+
+def apps_phonemize(card: str):
+    """apps/phonemize.py on the Kokoro GGUF prints what the runner's own
+    phonemizer gives."""
+    import contextlib
+
+    from tts_tpu_torch.apps import phonemize
+    from tts_tpu_torch.models.registry import runner_from_file
+
+    path = os.path.join(MODEL_DIR, "kokoro82m_seed0.gguf")
+    runner = runner_from_file(path, device="cuda")
+    for text in PHONEMIZE_TEXTS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = phonemize.main(["--phonemizer-path", path, "--prompt", text])
+        want = runner.phonemizer.text_to_phonemes(text)
+        check(rc == 0 and buf.getvalue() == want + "\n",
+              f"phonemize {text!r}: {buf.getvalue()!r}, runner {want!r}")
+        print(f"phonemize {text!r} -> {want!r} (= the runner's phonemizer)")
+
+
+def apps(card: str, orpheus_q4: str) -> dict:
+    """Phase 9; returns the launch counts of each app path."""
+    phase("9 apps: quantize, cli, perf_battery, phonemize")
+    import torch
+
+    t5 = os.path.join(MODEL_DIR, "flan_t5_large_f16_seed0.gguf")
+    check(os.path.exists(t5) and os.path.exists(orpheus_q4), "phase 9 needs phases 5 and 7's "
+          "models")
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    summary = {"card": card}
+    counts = {}
+    paths, summary["quantize"] = apps_quantize_parler(card)
+    counts["apps_Q4_0"], summary["cli_Q4_0"] = apps_cli_parler(card, paths["Q4_0"], "Q4_0", t5)
+    counts["apps_Q8_0"], summary["cli_Q8_0"] = apps_cli_parler(card, paths["Q8_0"], "Q8_0", None)
+    counts["apps_orpheus"], summary["cli_orpheus"] = apps_cli_orpheus(card, orpheus_q4)
+    summary["cli_process"] = apps_cli_process(card, paths["Q4_0"])
+    counts["apps_kokoro"], summary["battery"] = apps_battery(card)
+    apps_phonemize(card)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    print(json.dumps({"apps": summary}))
+    return counts
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -1810,6 +2183,7 @@ def main() -> int:
     counts["kokoro"] = kokoro()
     counts.update(parler())
     counts.update(dia())
+    counts.update(apps(card, paths["Q4_0"]))
     for r in results:
         path = next((q for q, ks in PATH_KERNELS.items() if r["name"] in ks), QTYPES[0])
         r["launches"] = counts[path][r["name"]]

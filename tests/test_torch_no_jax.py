@@ -5,7 +5,8 @@ test:dummy through the port's server, then write a tiny Q8_0 or Q4_0
 Orpheus, a tiny Kokoro, a tiny Q8_0 or Q4_0 Parler and T5, or a tiny Q8_0
 or Q4_0 Dia, with the port's own builders, load it and synthesize on the
 CPU: greedy and sampled requests and a stream, for Orpheus a greedy stream
-on its speculative route."""
+on its speculative route; or write a tiny f32 Parler, quantize it to Q4_0
+with the port's quantize app and speak it to a WAV with the port's cli."""
 
 import os
 import re
@@ -81,6 +82,24 @@ SCRIPT = textwrap.dedent("""
         assert stream.shape == resp.audio.shape and np.allclose(stream, resp.audio, atol=2e-5,
                                                                 rtol=0)
         assert len(greedy.audio) == len(resp.audio)
+    elif qtype == "apps":
+        import contextlib, io
+        from tts_tpu_torch.apps import cli, quantize
+        from tts_tpu_torch.convert.builder_parler import PARLER_MINI_V1, write_random_parler
+        from tts_tpu_torch.utils.audio import encode_wav
+        dims = dict(PARLER_MINI_V1, n_layers=2, hidden=256, heads=4, ffn=512, prompt_vocab=64,
+                    enc_len=12, enc_hidden=64, max_ctx=512, max_gen=64)
+        dac = dict(DAC_44KHZ, latent=96, decoder_dim=48, channels=(48, 24, 12, 6))
+        src = write_random_parler(sys.argv[1], qtype="F32", dac=dac, **dims)
+        q4, wav = sys.argv[1] + ".q4", sys.argv[1] + ".wav"
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert quantize.main(["-mp", str(src), "-qp", q4, "-qt", "Q4_0"]) == 0
+            assert cli.main(["-mp", q4, "-p", "hi", "-sp", wav, "--max-tokens", "15",
+                             "--seed", "0", "--device", "cpu"]) == 0
+        r = runner_from_file(q4, device="cpu")
+        assert "wq4" in r.params["layers"][0]["fc1"]
+        resp = r.generate("hi", GenerationConfig(top_k=50, max_tokens=15, seed=0))
+        assert open(wav, "rb").read() == encode_wav(resp.audio, 44100)
     elif qtype.startswith("dia"):
         from tts_tpu_torch.convert.builder_dia import DIA_1_6B, write_random_dia
         dims = dict(DIA_1_6B, enc_layers=2, dec_layers=2, enc_hidden=256, dec_hidden=256,
@@ -128,7 +147,7 @@ SCRIPT = textwrap.dedent("""
 
 
 @pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0", "kokoro", "parler-Q8_0", "parler-Q4_0",
-                                   "dia-Q8_0", "dia-Q4_0", "orpheus-stream-Q8_0"])
+                                   "dia-Q8_0", "dia-Q4_0", "orpheus-stream-Q8_0", "apps"])
 def test_port_runs_without_jax(tmp_path, qtype):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.path.join(ROOT, "tests"), os.environ.get("PYTHONPATH", "")]))
@@ -148,6 +167,6 @@ def test_port_runs_without_jax(tmp_path, qtype):
         audio = [line for line in lines if re.fullmatch(r"AUDIO \d+ True BLOCKED \[\]", line)]
         assert len(audio) == 1 and int(audio[0].split()[1]) % 512 == 0, lines
         return
-    n = {"kokoro": 13 * 3 * 600, "parler-Q8_0": 7 * 512,
-         "parler-Q4_0": 7 * 512}.get(qtype, (15 // 7) * 4 * 512)
+    n = {"kokoro": 13 * 3 * 600, "parler-Q8_0": 7 * 512, "parler-Q4_0": 7 * 512,
+         "apps": 7 * 512}.get(qtype, (15 // 7) * 4 * 512)
     assert f"AUDIO {n} True BLOCKED []" in lines, lines

@@ -6,8 +6,8 @@ counterpart's name and layout (`ops/qmatmul.py`, `ops/attention.py`,
 on the same inputs.  This package imports `torch` and never `jax`, nor any
 module of `tts_tpu`: the host-side pieces it needs (GGUF reader and writer,
 quant codecs, tokenizers, Kokoro's phonemizer and espeak binding, runner
-API, audio encoders, server, dummy runner, GGUF builders) are its own
-copies.
+API, audio encoders, server, apps, converters, dummy runner, GGUF builders)
+are its own copies.
 
 Layer map:
   csrc/     hand-written Hopper (sm_90a) CUDA kernels, one per TPU Pallas kernel
@@ -18,9 +18,11 @@ Layer map:
   codecs/   SNAC decoder
   models/   Orpheus-3B (Q8_0 or Q4_0 weights, bf16 KV cache), Kokoro-82M
             (exact shapes, bf16 frame-rate path), dummy + registry
-  runtime/  runner API
-  apps/     OpenAI-compatible speech server on `--device cuda`
-  convert/  seeded random-weight GGUF builders
+  runtime/  runner API, voice-inactivity trimming, SDL2 playback
+  apps/     OpenAI-compatible speech server, cli, quantize, perf_battery and
+            phonemize, each on `--device cuda` where it runs a model
+  convert/  seeded random-weight GGUF builders, the HF checkpoint converters
+            (from_hf) and the phonemizer trainer
 """
 
 __version__ = "0.1.0"

@@ -41,9 +41,14 @@ def orpheus_kv(n_layers: int, hidden: int, heads: int, kv_heads: int, head_dim: 
 
 def write_random_linear(w: GGUFWriter, rng: np.random.Generator, name: str, out_dim: int,
                         in_dim: int, qtype: str, std: float):
-    """Add a random `qtype` (Q8_0 or Q4_0) linear [out_dim, in_dim] to `w`:
+    """Add a random `qtype` linear [out_dim, in_dim] to `w`.  Q8_0 or Q4_0:
     uniform raw values, and per block of 32 an f16 `d` that scales them to
-    about `std`, +-50%."""
+    about `std`, +-50%.  F32: normal values of std `std` (for the quantize
+    app to quantize)."""
+    if qtype == "F32":
+        weight = rng.standard_normal((out_dim, in_dim), dtype=np.float32)
+        w.add_tensor(name, weight * np.float32(std))
+        return
     nbytes, raw_std = _BLOCKS[qtype]
     nb = out_dim * in_dim // 32
     blocks = np.empty((nb, 2 + nbytes), np.uint8)

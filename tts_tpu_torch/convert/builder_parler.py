@@ -6,8 +6,9 @@ py-gguf layout), from test sizes up to the full Parler-TTS mini v1.
 byte-identical file.  `write_random_parler` writes a full-width model
 without a real checkpoint, as `builder_orpheus.write_random_orpheus` does:
 every decoder linear, the cross-attention k/v included, as Q8_0 or Q4_0
-blocks written directly (random values, a random f16 `d` per block of 32),
-F16 embeddings and heads, and the DAC of `builder_codecs.DAC_44KHZ`.
+blocks written directly (random values, a random f16 `d` per block of 32)
+or as F32 (for the quantize app), F16 embeddings and heads, and the DAC of
+`builder_codecs.DAC_44KHZ`.
 """
 
 from __future__ import annotations
@@ -120,14 +121,15 @@ def write_random_parler(path, seed: int = 0, *, qtype: str = "Q8_0", n_layers: i
                         audio_vocab: int, prompt_vocab: int, enc_len: int, enc_hidden: int,
                         max_ctx: int, max_gen: int, dac: dict | None = None,
                         std: float = 0.02):
-    """Write a random Parler-TTS with `qtype` (Q8_0 or Q4_0) decoder linears
-    (weights of about `std`), F16 embeddings and heads, unit layer norms
+    """Write a random Parler-TTS with `qtype` (Q8_0, Q4_0 or F32) decoder
+    linears (weights of about `std`), F16 embeddings and heads, unit layer norms
     with zero bias, and a DAC of `dac`'s widths (`DAC_44KHZ` by default).
     The heads' rows for the ids at and above `audio_vocab` (EOS, BOS, the
     unused rest) are drawn 10x smaller, so that the random heads, like a
     trained model's, mostly emit audio codes; greedy decoding then never
     picks EOS, and every request runs to its `max_tokens`.  With
-    `**PARLER_MINI_V1` the Q8_0 file is 0.76 GB and the Q4_0 one 0.56 GB."""
+    `**PARLER_MINI_V1` the Q8_0 file is 0.76 GB, the Q4_0 one 0.56 GB and
+    the F32 one about 2 GB."""
     rng = np.random.default_rng(seed)
     dac_tensors, dac_kv = build_dac_tensors(rng, **(DAC_44KHZ if dac is None else dac))
     w = GGUFWriter(path)

@@ -1,8 +1,8 @@
 """WAV / AIFF encoders for float32 PCM (no third-party deps).
 
-The port's own copy of `encode_wav` / `encode_aiff` from
+The port's own copy of `encode_wav`, `write_wav` and `encode_aiff` from
 `tts_tpu/utils/audio.py`: the same bytes for the same audio (16-bit PCM by
-default, as the server sends it)."""
+default, as the server sends it and the cli writes it)."""
 
 from __future__ import annotations
 
@@ -38,6 +38,11 @@ def encode_wav(audio: np.ndarray, sample_rate: int, bit_depth: int = 16) -> byte
     out.write(struct.pack("<I", len(data)))
     out.write(data)
     return out.getvalue()
+
+
+def write_wav(path: str, audio: np.ndarray, sample_rate: int, bit_depth: int = 16):
+    with open(path, "wb") as f:
+        f.write(encode_wav(audio, sample_rate, bit_depth))
 
 
 def _f80(value: float) -> bytes:
