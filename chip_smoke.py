@@ -2,9 +2,10 @@
 """Smoke test of tts_tpu_torch on one CUDA card: the quickest proof that the
 port builds, that its kernels agree with their plain versions, that its
 server answers requests from full-width Orpheus-3B, Parler-TTS mini v1 and
-Dia-1.6B models with Q8_0 and with Q4_0 linears, and from Kokoro-82M, and
-that its command-line apps (quantize, cli, perf_battery, phonemize) run the
-same models.
+Dia-1.6B models with Q8_0 and with Q4_0 linears, and from Kokoro-82M, that
+its command-line apps (quantize, cli, perf_battery, phonemize) run the same
+models, and that its parallel layer (the duration trainer, Orpheus-3B over
+tp = 2, data-parallel replicas) runs on the card.
 
     python3 chip_smoke.py
 
@@ -93,6 +94,20 @@ Phases (any failure exits non-zero, before the final line):
      once as its own process; perf_battery's JSON line on phase 6's
      Kokoro-82M and its Q8_0 (30 sentences, warmup 1, no kernel launched);
      phonemize against the runner's own phonemizer
+ 10. the parallel layer, on one card: the Kokoro duration trainer at Kokoro-82M's
+     widths (phase 6's GGUF; f32, TF32 off), one step on cuda held to the same
+     step on the CPU (loss, five gradients), then 5 steps of 8 x 128 padded
+     tokens at mesh (1, 1) and (1, 2) = [cuda:0, cuda:0] (the loss falls; tp = 2
+     losses within 1e-5 of tp = 1; ms per step, peak memory; the five kernels
+     launch 0 times); phase 5's Orpheus-3B Q8_0 params cut over tp = 2 on
+     [cuda:0, cuda:0] by make_tp_context (shard shapes, the KV cache split by KV
+     heads), a greedy (speculative) and a sampled request through the
+     tensor-parallel runner with exact launches (394 qgemv_int8 and 56
+     flash_decode per decode step, 392 qgemm_int8 per prefill and 394 per verify
+     window), its greedy tokens against the unsharded runner's up to a near-tie
+     and both runners' sequential decode tok/s; Q4_0 stays at tp = 1; the
+     server's --data-parallel serves a Kokoro-82M request from its one replica,
+     and --tensor-parallel 2 raises on one card
 The line before the last is a JSON object of per-kernel results (each
 kernel's launches on its Orpheus path, and by path); the last is
 {"ok": true, "device": {...}}.  It imports only tts_tpu_torch, and fails if
@@ -103,6 +118,7 @@ from __future__ import annotations
 
 import gc
 import io
+import itertools
 import json
 import math
 import os
@@ -110,6 +126,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.request
 import wave
 
@@ -127,8 +144,13 @@ S_CACHE = 3584                     # (1024 + 2100) padded to the 512 chunk
 # prompt length, and lm_head on the last row only (M = 1)
 LINEAR_SHAPES = {"qkv": (3072, 5120), "o": (3072, 3072), "gateup": (3072, 16384),
                  "down": (8192, 3072), "lm_head": (3072, 157696)}
+# the shards each of phase 10's tp = 2 Q8_0 linears runs (make_tp_context):
+# qkv / gateup unfused, q/k/v/gate/up and the head (padded to 256 * tp
+# columns) cut by columns, o/down by rows
+TP2_SHAPES = {"tp2 q": (3072, 1536), "tp2 k/v": (3072, 512), "tp2 gate/up": (3072, 4096),
+              "tp2 o": (1536, 3072), "tp2 down": (4096, 3072), "tp2 lm_head": (3072, 78848)}
 GEMM_M = (8, 32)                   # beside the prompt lengths of phase 5's requests
-GEMM_F32_SHAPE = "down"            # the GEMMs' f32-x rows (the prefill passes bf16 x)
+GEMM_F32_SHAPES = ("down", "tp2 down")  # the GEMMs' f32-x rows (the prefill passes bf16 x)
 LINEARS_PER_LAYER = 4              # fused qkv, o, fused gateup, down
 GEMV_TOL = GEMM_TOL = 1e-4         # same f32 sums in another order
 # torch._weight_int4pack_mm, the int4 yardstick, rounds x, the scales and its
@@ -196,7 +218,7 @@ DIA_GEMM_M = (2, 16)
 DIA_CROSS = ("cross k/v", 2048, 1024, 2048)     # (name, M, K, N)
 DIA_LAYERS, DIA_LINEARS = 18, 9
 DIA_MAX_TOKENS = 256               # per request: random heads never emit EOS
-DIA_BRACKET_TOKENS = 128           # the greedy bracket's requests
+DIA_BRACKET_TOKENS = 64            # the greedy bracket's requests
 DIA_PROFILE_TOKENS = 48
 DIA_TEXTS = ("[S1] Hello from Dia on the card. [S2] Hi, glad to hear it.",
              "[S1] A greedy request on the speculative path.",
@@ -210,7 +232,7 @@ DIA_TINY = dict(enc_layers=2, dec_layers=2, enc_hidden=256, dec_hidden=256, enc_
 # bit apart may round to the neighbouring bf16: one bf16 step of a value is
 # at most 2^-7 of the largest magnitude
 DIA_CROSS_TOL = 2.0 ** -7
-ORPHEUS_BRACKET_TOKENS = 140       # phase 5's greedy bracket
+ORPHEUS_BRACKET_TOKENS = 70        # phase 5's greedy bracket
 # phase 5's requests to each model: (kind, /v1/audio/speech payload)
 REQUESTS = (
     ("sampled", {"input": "Hello from the port, this is a first test.", "voice": "zoe",
@@ -323,9 +345,10 @@ def build():
             print("    " + line.strip())
 
 
-def prompt_lengths() -> list[int]:
-    """The prefill M of each of phase 5's requests: the runner's prompt
-    (voice prefix, special tokens) under the random models' tokenizer."""
+def prompt_lengths(payloads=None) -> list[int]:
+    """The prefill M of each of phase 5's requests (or of `payloads`): the
+    runner's prompt (voice prefix, special tokens) under the random models'
+    tokenizer."""
     from tts_tpu_torch.convert.builder_orpheus import ORPHEUS_3B, orpheus_kv
     from tts_tpu_torch.models.orpheus import APPENDED_TOKENS, PREPENDED_TOKENS
     from tts_tpu_torch.text.tokenizers import BPETokenizer
@@ -334,7 +357,7 @@ def prompt_lengths() -> list[int]:
                                                   "head_dim", "vocab")})
     tok = BPETokenizer.from_gguf_kv(kv)
     lengths = []
-    for _, payload in REQUESTS:
+    for payload in payloads or [p for _, p in REQUESTS]:
         voice = payload.get("voice", "")
         text = f"{voice}: {payload['input']}" if voice else payload["input"]
         lengths.append(len(PREPENDED_TOKENS) + len(tok.tokenize(text)) + len(APPENDED_TOKENS))
@@ -509,6 +532,8 @@ def kernels():
     # phase 7's prompt lengths and encoding lengths; and Dia-1.6B's GEMMs
     # on f32 x: a CFG step (M = 2), a verify (16), the cross-KV (2048).
     gemm_ms = sorted(set(GEMM_M) | set(prompt_lengths()))
+    # phase 10's tp = 2 prefills and verify windows
+    tp2_ms = sorted(set(GEMM_M) | set(prompt_lengths([{"input": t} for t in TP_TEXTS])))
     parler_ms = parler_gemm_lengths()
     for bits, fn, plain, tpu_line, ms_list, iters in (
             (8, tq.qgemv_int8, tq.qgemv_int8_plain, "tts_tpu/ops/qmatmul.py:144", (1,), 20),
@@ -518,15 +543,18 @@ def kernels():
         rows = []
         gemv = ms_list == (1,)
         tol = GEMV_TOL if gemv else GEMM_TOL
-        for i, (name, (K, N)) in enumerate(LINEAR_SHAPES.items()):
+        # the tp = 2 shards run Q8_0 only: Q4_0 stays whole (make_tp_context)
+        orpheus = {**LINEAR_SHAPES, **(TP2_SHAPES if bits == 8 else {})}
+        for i, (name, (K, N)) in enumerate(orpheus.items()):
             ws = rotating_weights(K, N, dev, 100 * (not gemv) + i + bits, int4=bits == 4)
-            runs = [(M, torch.bfloat16) for M in ms_list] + [
-                (M, torch.float32) for M in ms_list if name == (
-                    "lm_head" if gemv else GEMM_F32_SHAPE)]
+            f32 = name.endswith("lm_head") if gemv else name in GEMM_F32_SHAPES
+            m_values = tp2_ms if name in TP2_SHAPES and not gemv else ms_list
+            runs = [(M, torch.bfloat16) for M in m_values] + [
+                (M, torch.float32) for M in m_values if f32]
             for M, xdtype in runs:
                 x = torch.randn((M, K), device=dev).to(xdtype)
                 rows.append(measure(fn, plain, bits, f"{name} M={M} x={str(xdtype)[6:]}", K, N,
-                                    M, x, ws, tol, iters, name != "lm_head"))
+                                    M, x, ws, tol, iters, name in ("qkv", "o", "gateup", "down")))
             del ws
         for i, (name, (K, N)) in enumerate(PARLER_SHAPES.items()):
             ws = rotating_weights(K, N, dev, 300 + 10 * (not gemv) + i + bits, int4=bits == 4)
@@ -546,23 +574,26 @@ def kernels():
         record(fn.__name__, f"tts_tpu_torch/csrc/qmatmul{'4' if bits == 4 else ''}.cu",
                tpu_line, rows)
 
+    # flash_decode over Orpheus-3B's heads, and over the stripe of them
+    # (12 query heads on 4 KV heads) that each of phase 10's tp = 2 cache
+    # shards holds
     rows = []
     g = torch.Generator(device=dev).manual_seed(7)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for quant in (False, True):
+    for (hq, hkv), quant in itertools.product(((HQ, HKV), (HQ // 2, HKV // 2)), (False, True)):
         if quant:
-            k = torch.randint(-127, 128, (HKV, S_CACHE, HS), generator=g, device=dev,
+            k = torch.randint(-127, 128, (hkv, S_CACHE, HS), generator=g, device=dev,
                               dtype=torch.int8)
-            v = torch.randint(-127, 128, (HKV, S_CACHE, HS), generator=g, device=dev,
+            v = torch.randint(-127, 128, (hkv, S_CACHE, HS), generator=g, device=dev,
                               dtype=torch.int8)
-            ks = torch.rand((HKV, S_CACHE), generator=g, device=dev) * 0.02 + 1e-3
-            vs = torch.rand((HKV, S_CACHE), generator=g, device=dev) * 0.02 + 1e-3
+            ks = torch.rand((hkv, S_CACHE), generator=g, device=dev) * 0.02 + 1e-3
+            vs = torch.rand((hkv, S_CACHE), generator=g, device=dev) * 0.02 + 1e-3
         else:
-            k = torch.randn((HKV, S_CACHE, HS), generator=g, device=dev).bfloat16()
-            v = torch.randn((HKV, S_CACHE, HS), generator=g, device=dev).bfloat16()
+            k = torch.randn((hkv, S_CACHE, HS), generator=g, device=dev).bfloat16()
+            v = torch.randn((hkv, S_CACHE, HS), generator=g, device=dev).bfloat16()
             ks = vs = None
-        q = torch.randn((HQ, HS), generator=g, device=dev)
-        counters = ta.arrival_counters(HKV, dev)
+        q = torch.randn((hq, HS), generator=g, device=dev)
+        counters = ta.arrival_counters(hkv, dev)
         kind = "int8" if quant else "bf16"
         for pos in FLASH_POSITIONS:
             pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
@@ -570,8 +601,9 @@ def kernels():
             a, r = rel_err(ta.flash_decode(q, k, v, pos_t, ks, vs, counters), want)
             names = [e["name"] for e in _ext.device_activity(
                 lambda: ta.flash_decode(q, k, v, pos_t, ks, vs, counters))]
-            check(len(names) == 1, f"flash_decode {pos}: {len(names)} device kernels per call "
-                  f"({names}), not 1")
+            label = f"{kind} Hq={hq} Hkv={hkv} pos={pos}"
+            check(len(names) == 1, f"flash_decode {label}: {len(names)} device kernels per "
+                  f"call ({names}), not 1")
             fns = {"plain": lambda j: ta.flash_decode_plain(q, k, v, pos, ks, vs),
                    "kernel": lambda j: ta.flash_decode(q, k, v, pos_t, ks, vs, counters)}
             lr = None
@@ -579,21 +611,22 @@ def kernels():
                 # the yardstick: one PyTorch call on the live prefix, bf16 q
                 qb, kl, vl = q.bfloat16()[None, :, None], k[None, :, :pos + 1], v[None, :, :pos + 1]
                 fns["library"] = lambda j: sdpa(qb, kl, vl, enable_gqa=True)
-                _, lr = rel_err(fns["library"](0).reshape(HQ, HS), want)
+                _, lr = rel_err(fns["library"](0).reshape(hq, HS), want)
             t = timed(fns, {"plain": 3, "kernel": 20, "library": 20})
-            live = (pos + 1) * HKV
-            nbytes = 2 * HQ * HS * 4 + live * (2 * HS * k.element_size() + (8 if quant else 0))
-            rows.append(row(f"{kind} Hq={HQ} Hkv={HKV} S={S_CACHE} pos={pos}", a, r,
-                            t["kernel"], t["plain"], nbytes, 4 * HQ * (pos + 1) * HS,
+            live = (pos + 1) * hkv
+            nbytes = 2 * hq * HS * 4 + live * (2 * HS * k.element_size() + (8 if quant else 0))
+            rows.append(row(f"{kind} Hq={hq} Hkv={hkv} S={S_CACHE} pos={pos}", a, r,
+                            t["kernel"], t["plain"], nbytes, 4 * hq * (pos + 1) * HS,
                             t.get("library"), lr, device_kernels=len(names)))
             gbs = nbytes / (t["kernel"] * 1e-3) / 1e9
             lib = f"  library {t['library'] * 1e3:7.1f} us" if "library" in t else ""
             lib_note = f"  (library rel_err {lr:.1e})" if lr is not None else ""
-            print(f"flash_decode {kind} pos={pos:4d}  rel_err {r:.2e} (tol {FLASH_TOL:.0e})  "
+            print(f"flash_decode {kind} Hq={hq:2d} Hkv={hkv} pos={pos:4d}  rel_err {r:.2e} "
+                  f"(tol {FLASH_TOL:.0e})  "
                   f"kernel {t['kernel'] * 1e3:7.1f} us  plain {t['plain'] * 1e3:8.1f} us{lib}  "
                   f"bound {rows[-1]['bound_ms'] * 1e3:5.2f} us  {gbs:7.1f} GB/s  "
                   f"{len(names)} device kernel per call{lib_note}")
-            check(r < FLASH_TOL, f"flash_decode {kind} pos={pos}: rel err {r} >= {FLASH_TOL}")
+            check(r < FLASH_TOL, f"flash_decode {label}: rel err {r} >= {FLASH_TOL}")
     record("flash_decode", "tts_tpu_torch/csrc/attention.cu", "tts_tpu/ops/attention.py:30",
            rows)
     torch.cuda.synchronize()
@@ -728,10 +761,10 @@ def orpheus_bracket(runner, text: str) -> dict:
     return {"tok_per_s": rates, "tokens": len(seq), "first_part_from_sequential": part}
 
 
-def server(path: str, qtype: str) -> dict:
+def server(path: str, qtype: str) -> tuple[dict, object]:
     """Serve 3 requests and a greedy PCM stream from one full-width model;
     returns the launch counts of that run, every counter set to 0 just
-    before it."""
+    before it, and the runner."""
     phase(f"5 server, Orpheus-3B {qtype}")
     import torch
 
@@ -845,7 +878,7 @@ def server(path: str, qtype: str) -> dict:
           f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
     summary = {"ttfa_ms": ttfa * 1e3, "bracket": orpheus_bracket(runner, REQUESTS[2][1]["input"])}
     print(json.dumps({f"orpheus_{qtype}": summary}))
-    return counts
+    return counts, runner
 
 
 def kokoro_tiny_cuda_vs_cpu():
@@ -2164,6 +2197,403 @@ def apps(card: str, orpheus_q4: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 10 ---
+TRAIN_BATCH = (8, 128)             # examples x tokens of a trainer step, trailing pads
+TRAIN_CHECK_BATCH = (2, 32)        # the step held to the CPU
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4                    # the trainer's default (optax.adam's in the JAX package); at
+                                   # 1e-3 the loss swings (1.51, 0.019, 6.63, ...) and Adam turns
+                                   # gradients that are ~0 in f32 (ALBERT's q_w) into lr-sized
+                                   # steps in noise-given directions, so tp = 2 and tp = 1 part
+TRAIN_LOSS_TOL = 1e-4              # the step's loss, cuda against cpu (f32, TF32 off)
+TRAIN_GRAD_TOL = 1e-3              # its gradients, of each tensor's peak
+TRAIN_TP_RTOL = 1e-5               # tp = 2 losses against tp = 1, same card, TF32 off
+TP_TOKENS = 70                     # tokens of each tp = 2 request and of the decode bracket
+TP_LINEARS = 7                     # q, k, v, o, gate, up, down: fusion is undone under TP
+# the tp = 2 prompts whose prefill logits are held to the unsharded runner's;
+# the first also drives the requests and the decode brackets
+TP_TEXTS = ("A tensor-parallel request on one card.", HARVARD[3], HARVARD[6])
+TP_TEXT = TP_TEXTS[0]
+TP_LOGIT_TOL = 5e-2                # tp = 2 logits against unsharded, of their peak (bf16 x)
+TP_ROUNDS = 3                      # unsharded and tp = 2 decode brackets, alternately
+
+
+def _train_batch(model, shape, seed: int):
+    """A padded batch at Kokoro-82M's vocabulary: row 0 full, the others
+    cut at random lengths past half; the voice pack's prosody rows; target
+    durations of 1-12 frames per token, as a teacher's vary by phoneme (a
+    constant target is fit in a few steps, and the loss then measures
+    residuals: at 5 frames it fell to 1% of its start in 4 steps)."""
+    B, T = shape
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, cfg.vocab_size, (B, T))
+    lengths = rng.integers(T // 2, T + 1, B)
+    lengths[0] = T
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    pack = model.params["voices"]["af_heart"].float().cpu().numpy()
+    rows = pack[np.minimum(np.maximum(lengths - 3, 0), len(pack) - 1)]
+    style = rows[:, cfg.style_half_size:2 * cfg.style_half_size].copy()
+    return tokens, mask, style, rng.integers(1, 13, (B, T)).astype(np.float32)
+
+
+def _trainer_step_grads(model, device, batch) -> tuple[float, dict]:
+    """One trainer step on a (1, 1) mesh of `device`: its loss and the
+    gradients of five leaves across the graph (none of them zero in exact
+    arithmetic, as ALBERT's k_b is)."""
+    import torch
+
+    from tts_tpu_torch.parallel.mesh import make_mesh
+    from tts_tpu_torch.parallel.training import DurationTrainer
+
+    trainer = DurationTrainer(model.cfg, make_mesh(devices=[torch.device(device)]), TRAIN_LR)
+    params, opt = trainer.init(model.params)
+    _, _, loss = trainer.train_step(params, opt, *batch)
+    L, dp = params["albert"]["layers"][0], params["dp"]
+    leaves = {"albert v_w": L["v_w"][0], "albert ffn_out_w": L["ffn_out_w"][0],
+              "dp encode_w": dp["encode_w"],
+              "duration lstm w_hh": dp["duration_lstm"]["fwd"]["w_hh"],
+              "duration_proj_w": dp["duration_proj_w"]}
+    return float(loss), {k: v.grad.float().cpu() for k, v in leaves.items()}
+
+
+def parallel_trainer(card: str) -> tuple[dict, dict]:
+    """Phase 10 (a): the duration trainer at Kokoro-82M's widths (phase 6's
+    GGUF), TF32 off: one step on cuda held to the same step on the CPU,
+    then TRAIN_STEPS steps at mesh (1, 1) and (1, 2) = [cuda:0, cuda:0];
+    returns (the five kernels' launches over those steps, summary)."""
+    import torch
+
+    from tts_tpu_torch.core.gguf import GGUFFile
+    from tts_tpu_torch.models.kokoro import KokoroModel
+    from tts_tpu_torch.parallel.mesh import make_mesh
+    from tts_tpu_torch.parallel.training import DurationTrainer
+
+    path = os.path.join(MODEL_DIR, "kokoro82m_seed0.gguf")
+    check(os.path.exists(path), "phase 10 needs phase 6's Kokoro-82M")
+    with GGUFFile(path) as f:
+        cpu_model = KokoroModel.from_gguf(f, "cpu")
+        model = KokoroModel.from_gguf(f, "cuda")
+    batch = _train_batch(model, TRAIN_CHECK_BATCH, seed=10)
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = _trainer_step_grads(cpu_model, "cpu", batch)
+    cpu_s = time.perf_counter() - t0
+    loss_gpu, grads_gpu = _trainer_step_grads(model, "cuda", batch)
+    errs = {k: ((grads_gpu[k] - g).abs().max().item(), g.abs().max().item())
+            for k, g in grads_cpu.items()}
+    print(f"trainer step at {TRAIN_CHECK_BATCH}: loss cuda {loss_gpu!r}, cpu {loss_cpu!r} "
+          f"(cpu step {cpu_s:.2f} s); gradient max error / peak: "
+          + ", ".join(f"{k} {e:.2e} / {p:.2e}" for k, (e, p) in errs.items()))
+    check(abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_TOL * abs(loss_cpu),
+          f"trainer loss cuda {loss_gpu} against cpu {loss_cpu}")
+    check(all(e <= TRAIN_GRAD_TOL * p for e, p in errs.values()),
+          f"trainer gradients cuda against cpu: {errs}")
+    del cpu_model
+
+    batch = _train_batch(model, TRAIN_BATCH, seed=11)
+    counters = launch_counters()
+    for kernel in counters.values():
+        kernel.launches = 0
+    cuda0 = torch.device("cuda", 0)
+    runs = {}
+    for tp in (1, 2):
+        trainer = DurationTrainer(model.cfg, make_mesh(tp, tp=tp, devices=[cuda0] * tp),
+                                  TRAIN_LR)
+        params, opt = trainer.init(model.params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, ms = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            _, _, loss = trainer.train_step(params, opt, *batch)
+            losses.append(float(loss))                  # reads the loss: synchronises
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
+        runs[f"tp{tp}"] = {"losses": losses, "ms_per_step": ms,
+                           "ms_per_step_warm": float(np.mean(ms[1:])),
+                           "peak_mib_over_params": peak / 2**20}
+        print(f"trainer mesh (1, {tp}) on {card}: {TRAIN_BATCH[0]} x {TRAIN_BATCH[1]} tokens, "
+              f"losses {losses}, ms per step {[round(m, 1) for m in ms]} (warm mean "
+              f"{runs[f'tp{tp}']['ms_per_step_warm']:.1f}), peak memory {peak / 2**20:.0f} MiB "
+              f"over the params")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"trainer tp={tp}: the loss did not fall: {losses}")
+        del params, opt
+    counts = {k: c.launches for k, c in counters.items()}
+    check(not any(counts.values()), f"the trainer launched a kernel of the port: {counts}")
+    rel = np.abs(np.subtract(runs["tp2"]["losses"], runs["tp1"]["losses"])) / np.abs(
+        runs["tp1"]["losses"])
+    print(f"trainer tp = 2 against tp = 1: largest relative loss difference {rel.max():.2e}")
+    check(rel.max() <= TRAIN_TP_RTOL, f"trainer tp=2 losses against tp=1: {rel}")
+    del model
+    return counts, runs
+
+
+def _greedy_stream(runner, ids, n: int) -> tuple[list, float]:
+    """The prefill's token and n - 1 sequential greedy steps after it:
+    (tokens, decode tok/s)."""
+    import torch
+
+    from tts_tpu_torch.models import orpheus as tor
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    config = GenerationConfig(sample=False, seed=0, max_tokens=n)
+    with torch.inference_mode():
+        _, first, _, state, max_steps = runner._prefill(ids, config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = tor.orpheus_decode_loop(runner.params, runner.cfg, first, len(ids),
+                                         max_steps - 1, runner._cache, None, state,
+                                         do_sample=False)
+        torch.cuda.synchronize()
+    return [int(first[0])] + got, len(got) / (time.perf_counter() - t0)
+
+
+def _step_logits(runner, ids, stream, i: int):
+    """The logits from which the runner's sequential greedy loop chose
+    stream[i]: the prompt's prefill, then decode steps along stream[:i]."""
+    import torch
+
+    from tts_tpu_torch.models import orpheus as tor
+
+    dev = runner.device
+    with torch.inference_mode():
+        logits = tor.orpheus_prefill(runner.params, runner.cfg, torch.tensor(ids, device=dev),
+                                     runner._cache)
+        for j, tok in enumerate(stream[:i]):
+            logits = tor.orpheus_decode_step(
+                runner.params, runner.cfg, torch.tensor([tok], device=dev),
+                torch.tensor([len(ids) + j], dtype=torch.int32, device=dev), runner._cache)
+    return logits.float()
+
+
+def parallel_orpheus(card: str, runner, q4_path: str) -> tuple[dict, dict]:
+    """Phase 10 (b): phase 5's Orpheus-3B Q8_0 params cut over tp = 2 on
+    [cuda:0, cuda:0] by make_tp_context; a greedy (speculative) and a
+    sampled request through the tensor-parallel runner, launches exact;
+    prefill logits of TP_TEXTS against the unsharded runner's, beside a
+    planted fault that the tolerance must catch; greedy tokens against the
+    unsharded runner's up to near-ties, and decode tok/s of both in
+    alternating rounds; Q4_0 stays at tp = 1.  Returns (launches, summary)."""
+    import torch
+
+    from tts_tpu_torch.models import orpheus as tor
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.parallel.mesh import Mesh, Shards, tree_map
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    cuda0 = torch.device("cuda", 0)
+    mesh = Mesh([cuda0, cuda0], ("tp",))
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    tp = tor.OrpheusRunner(runner.cfg, runner.params, runner.tokenizer, runner.snac,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    print(f"make_tp_context: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**20 - base_mib:.0f} MiB of shards and cache "
+          f"beside the unsharded runner's")
+    L = tp.params["layers"][0]
+    shapes = {n: [tuple(s["wq"].shape) for s in L[n]] for n in ("q", "k", "o", "gate", "down")}
+    shapes["head"] = [tuple(s["wq"].shape) for s in tp.params["head"]]
+    want = {"q": (HIDDEN, HQ * HS // 2), "k": (HIDDEN, HKV * HS // 2), "o": (HQ * HS // 2, HIDDEN),
+            "gate": (HIDDEN, FFN // 2), "down": (FFN // 2, HIDDEN), "head": (HIDDEN, 78848)}
+    print(f"shards per linear: {shapes}")
+    check(tp.cfg.tp == 2 and all(v == [want[k]] * 2 for k, v in shapes.items()),
+          f"tp = 2 shards: {shapes}")
+    check(isinstance(tp._cache, Shards) and len(tp._cache) == 2
+          and all(c["k"].shape[1] == HKV // 2 for c in tp._cache),
+          "the KV cache is not split by KV heads")
+
+    forwards, restore = _counting(tor, "_orpheus_body", lambda p, c, tokens, positions, cache,
+                                  start=0: "step" if tokens.shape[0] == 1
+                                  else "verify" if start else "prefill")
+    counters = launch_counters()
+    for kernel in counters.values():
+        kernel.launches = 0
+    try:
+        t0 = time.perf_counter()
+        greedy = tp.generate(TP_TEXT, GenerationConfig(sample=False, seed=0,
+                                                       max_tokens=TP_TOKENS))
+        greedy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sampled = tp.generate(TP_TEXT, GenerationConfig(seed=1, top_k=50, max_tokens=TP_TOKENS))
+        sampled_s = time.perf_counter() - t0
+    finally:
+        counts = {k: c.launches for k, c in counters.items()}
+        restore()
+    for name, resp, wall in (("greedy", greedy, greedy_s), ("sampled", sampled, sampled_s)):
+        steps = resp.timings["decode_steps"]
+        check(bool(np.isfinite(resp.audio).all()) and len(resp.audio) == (steps // 7) * 2048 > 0,
+              f"tp = 2 {name}: {len(resp.audio)} samples for {steps} tokens")
+        print(f"tp = 2 {name:7s} wall {wall * 1e3:8.1f} ms  {steps} tokens, decode "
+              f"{steps / (resp.timings['decode_ms'] / 1e3):6.1f} tok/s")
+    per_layer = TP_LINEARS * 2
+    print(f"launches over the tp = 2 requests (forwards {dict(forwards)}): {counts}")
+    check(forwards["step"] > 0 and forwards["verify"] > 0 and forwards["prefill"] == 2,
+          f"forwards {dict(forwards)}")
+    check(counts["qgemv_int8"] == (LAYERS * per_layer + 2) * forwards["step"]
+          + 2 * forwards["prefill"],
+          f"qgemv_int8 launched {counts['qgemv_int8']}, not 28 * 7 * 2 + 2 = 394 per decode "
+          f"step and 2 (the head's shards) per prefill: {dict(forwards)}")
+    check(counts["qgemm_int8"] == LAYERS * per_layer * forwards["prefill"]
+          + (LAYERS * per_layer + 2) * forwards["verify"],
+          f"qgemm_int8 launched {counts['qgemm_int8']}, not 392 per prefill and 394 per "
+          f"verify window: {dict(forwards)}")
+    check(counts["flash_decode"] == 2 * LAYERS * forwards["step"],
+          f"flash_decode launched {counts['flash_decode']}, not 56 per decode step")
+    check(counts["qgemv_int4"] == counts["qgemm_int4"] == 0, f"int4 launched: {counts}")
+
+    # prefill logits of each prompt, tp = 2 against unsharded; beside them
+    # a yardstick, the unsharded runner with only its qkv / gateup fusion
+    # undone (the same products, other K splits), and a control, tp = 2
+    # with a planted fault: every row-parallel linear (o, down) drops its
+    # last shard's partial product
+    real = tor._tp_qlinear
+
+    def dropped(x, shards, *, col):
+        if not col:
+            x = x.clone()
+            x[:, -(x.shape[-1] // len(shards)):] = 0
+        return real(x, shards, col=col)
+
+    with torch.inference_mode():
+        unfused = tree_map(torch.Tensor.contiguous,
+                           tor._unfuse_for_tp(runner.params, runner.cfg))
+    unfused = types.SimpleNamespace(params=unfused, cfg=runner.cfg, device=runner.device,
+                                    _cache=runner._cache)
+    prompts = []
+    for text in TP_TEXTS:
+        ids = runner._prompt_ids(text, GenerationConfig())
+        check(len(ids) in prompt_lengths([{"input": text}]),
+              f"tp = 2 prefill M={len(ids)} was not checked in phase 3")
+        base = _step_logits(runner, ids, [], 0)
+        tor._tp_qlinear = dropped
+        try:
+            fault = _step_logits(tp, ids, [], 0)
+        finally:
+            tor._tp_qlinear = real
+        prompts.append({"prompt_tokens": len(ids), "peak": base.abs().max().item(),
+                        "tp2": (_step_logits(tp, ids, [], 0) - base).abs().max().item(),
+                        "unfused": (_step_logits(unfused, ids, [], 0) - base).abs().max().item(),
+                        "planted_fault": (fault - base).abs().max().item()})
+        p = prompts[-1]
+        print(f"prefill logits, {len(ids)} tokens (peak {p['peak']:.3e}): tp = 2 differs by "
+              f"{p['tp2']:.3e} = {p['tp2'] / p['peak']:.2%} of the peak, the unsharded runner "
+              f"unfused by {p['unfused'] / p['peak']:.2%}, tp = 2 with the planted fault by "
+              f"{p['planted_fault'] / p['peak']:.2%} (tol {TP_LOGIT_TOL:.0%})")
+        check(p["tp2"] <= TP_LOGIT_TOL * p["peak"],
+              f"tp = 2 prefill logits differ by {p['tp2']} (peak {p['peak']})")
+        check(p["planted_fault"] > TP_LOGIT_TOL * p["peak"],
+              f"the planted fault passes the tp = 2 logit tolerance: {p}")
+    del unfused
+
+    # sequential greedy decode of TP_TEXT, unsharded and tp = 2 alternately
+    ids = runner._prompt_ids(TP_TEXT, GenerationConfig())
+    streams, rates = {}, {"unsharded": [], "tp2": []}
+    for _ in range(TP_ROUNDS):
+        for key, r in (("unsharded", runner), ("tp2", tp)):
+            toks, rate = _greedy_stream(r, ids, TP_TOKENS)
+            check(streams.setdefault(key, toks) == toks, f"{key}: greedy tokens changed")
+            rates[key].append(rate)
+    base, got = streams["unsharded"], streams["tp2"]
+    part = next((i for i, (a, b) in enumerate(zip(base, got)) if a != b), len(base))
+    summary = {"decode_tok_per_s": rates, "tokens": len(base), "first_part": part,
+               "prefill_logits": prompts}
+    if part < len(base):
+        # the logits each loop computed for token `part` (the kernels give
+        # the same bits again): where the unsharded choice a and tp's b
+        # part, a's lead over b is at most twice the runners' difference
+        lb, lt = (_step_logits(r, ids, base, part) for r in (runner, tp))
+        gap = (lb[base[part]] - lb[got[part]]).item()
+        diff = (lb - lt).abs().max().item()
+        peak = lb.abs().max().item()
+        summary.update(part_gap=gap, part_logit_diff=diff)
+        print(f"tp = 2 greedy parts from the unsharded runner at token {part}: top-2 gap "
+              f"{gap:.3e}, logits differ by up to {diff:.3e} there (peak {peak:.3e})")
+        check(gap <= 2 * diff and diff <= TP_LOGIT_TOL * peak,
+              f"tp = 2 greedy token {part} is not a near-tie: gap {gap}, logit difference {diff}")
+    check(len(got) == len(base), f"tp = 2 decoded {len(got)} tokens, unsharded {len(base)}")
+    print(f"greedy sequential decode, {len(base)} tokens, {TP_ROUNDS} rounds alternately on "
+          f"{card}: unsharded {[round(x, 1) for x in rates['unsharded']]} tok/s, tp = 2 "
+          f"{[round(x, 1) for x in rates['tp2']]} tok/s; tokens equal up to token {part}")
+    del tp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    q4 = runner_from_file(q4_path, mesh=mesh)
+    check(q4.cfg.tp == 1 and "wq4" in q4.params["layers"][0]["qkv"],
+          f"Q4_0 over tp = 2: cfg.tp {q4.cfg.tp}, not kept whole")
+    print("Q4_0 over tp = 2: cfg.tp == 1, fused and whole on cuda:0 (the int4 row-parallel "
+          "split is excluded)")
+    del q4
+    return counts, summary
+
+
+def parallel_server(card: str) -> dict:
+    """Phase 10 (c): --data-parallel serves a Kokoro-82M request from its one
+    replica on this card; --tensor-parallel 2 raises on one card.  Returns
+    the five kernels' launches over the request."""
+    import torch
+
+    from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
+
+    path = os.path.join(MODEL_DIR, "kokoro82m_seed0.gguf")
+    state = ServerState({"kokoro82m": path}, _kokoro_config(), 2, device="cuda",
+                        data_parallel=True)
+    srv = make_server(state, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    counters = launch_counters()
+    for kernel in counters.values():
+        kernel.launches = 0
+    try:
+        t0 = time.perf_counter()
+        status, body, ctype = _post(srv.server_address[1], {"input": HARVARD[0]})
+        wall = time.perf_counter() - t0
+    finally:
+        counts = {k: c.launches for k, c in counters.items()}
+        srv.shutdown()
+        srv.server_close()
+        stop_workers(state)
+    check(status == 200 and ctype == "audio/wav", f"data-parallel: HTTP {status} {ctype}")
+    with wave.open(io.BytesIO(body)) as wf:
+        n = wf.getnframes()
+        check(wf.getframerate() == 24000 and n > 0, f"data-parallel: {n} samples")
+    replicas = {key: r.model.device for key, r in state._runners.items()}
+    check(replicas == {("kokoro82m", 0): torch.device("cuda", 0)},
+          f"data-parallel replicas: {replicas}")
+    check(not any(counts.values()), f"the Kokoro replica launched a kernel: {counts}")
+    print(f"--data-parallel on {card}: one replica {replicas}, a Kokoro-82M request in "
+          f"{wall * 1e3:.1f} ms, {n / 24000:.3f} s of audio")
+    try:
+        ServerState({"kokoro82m": path}, _kokoro_config(), 1, device="cuda",
+                    tensor_parallel=2)
+    except ValueError as e:
+        check("tensor_parallel=2 needs at least 2 devices; 1 visible" in str(e), str(e))
+        print(f"--tensor-parallel 2 on one card raises: {e}")
+    else:
+        check(False, "--tensor-parallel 2 on one card did not raise")
+    return counts
+
+
+def parallel(card: str, orpheus_q8, q4_path: str) -> dict:
+    """Phase 10; returns the launch counts of each of its paths."""
+    phase("10 parallel: the duration trainer, Orpheus-3B at tp = 2, the server's replicas")
+    import torch
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {}
+    try:
+        counts["trainer"], trainer = parallel_trainer(card)
+        counts["tp_Q8_0"], tp = parallel_orpheus(card, orpheus_q8, q4_path)
+        counts["dp_kokoro"] = parallel_server(card)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    print(json.dumps({"parallel": {"card": card, "trainer": trainer, "tp_Q8_0": tp}}))
+    return counts
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2179,11 +2609,18 @@ def main() -> int:
     build()
     results = kernels()
     paths = model()
-    counts = {qtype: server(paths[qtype], qtype) for qtype in QTYPES}
+    counts, orpheus_q8 = {}, None
+    for qtype in QTYPES:
+        counts[qtype], runner = server(paths[qtype], qtype)
+        if qtype == "Q8_0":
+            orpheus_q8 = runner         # phase 10 cuts its params over tp = 2
+        del runner
     counts["kokoro"] = kokoro()
     counts.update(parler())
     counts.update(dia())
     counts.update(apps(card, paths["Q4_0"]))
+    counts.update(parallel(card, orpheus_q8, paths["Q4_0"]))
+    del orpheus_q8
     for r in results:
         path = next((q for q, ks in PATH_KERNELS.items() if r["name"] in ks), QTYPES[0])
         r["launches"] = counts[path][r["name"]]

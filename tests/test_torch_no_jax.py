@@ -6,7 +6,10 @@ Orpheus, a tiny Kokoro, a tiny Q8_0 or Q4_0 Parler and T5, or a tiny Q8_0
 or Q4_0 Dia, with the port's own builders, load it and synthesize on the
 CPU: greedy and sampled requests and a stream, for Orpheus a greedy stream
 on its speculative route; or write a tiny f32 Parler, quantize it to Q4_0
-with the port's quantize app and speak it to a WAV with the port's cli."""
+with the port's quantize app and speak it to a WAV with the port's cli; or
+run the parallel layer: two Kokoro duration-trainer steps on a (1, 2)
+mesh, a Kokoro replica, and a tiny Q8_0 Orpheus tensor-parallel over two
+CPU entries."""
 
 import os
 import re
@@ -119,6 +122,31 @@ SCRIPT = textwrap.dedent("""
         for out in (greedy, resp):
             assert out.timings["decode_steps"] == 23 and 0 < out.timings["frames"] <= 8
             assert len(out.audio) == 512 * out.timings["frames"]
+    elif qtype == "parallel":
+        from tts_tpu_torch.convert.builder_kokoro import KokoroDims, write_kokoro_gguf
+        from tts_tpu_torch.core.gguf import GGUFFile
+        from tts_tpu_torch.models.kokoro import KokoroModel
+        from tts_tpu_torch.parallel import serving
+        from tts_tpu_torch.parallel.mesh import Mesh, make_mesh
+        from tts_tpu_torch.parallel.training import DurationTrainer
+        kpath = write_kokoro_gguf(sys.argv[1] + ".k", KokoroDims.tiny(), seed=0)
+        with GGUFFile(str(kpath)) as f:
+            model = KokoroModel.from_gguf(f)
+        trainer = DurationTrainer(model.cfg, make_mesh(2, devices=["cpu"] * 2), 1e-2)
+        params, opt = trainer.init(model.params)
+        batch = (np.ones((2, 8), np.int64), np.ones((2, 8), np.float32),
+                 np.zeros((2, model.cfg.style_half_size), np.float32), np.ones((2, 8), np.float32))
+        losses = [float(trainer.train_step(params, opt, *batch)[2]) for _ in range(2)]
+        assert losses[1] < losses[0], losses
+        replica = serving.load_replica(str(kpath), GenerationConfig(voice="af_heart"),
+                                       torch.device("cpu", 1))
+        assert replica.model.device == torch.device("cpu", 1)
+        path = write_random_orpheus(sys.argv[1], qtype="Q8_0", **TINY, vocab=156940,
+                                    snac_embd=96, snac_channels=(48, 24, 12, 6))
+        r = runner_from_file(str(path), mesh=Mesh(["cpu", "cpu"], ("tp",)))
+        r.cfg = dataclasses.replace(r.cfg, max_context_length=CTX, max_generation_size=GEN)
+        assert r.cfg.tp == 2 and len(r._cache) == 2
+        resp = r.generate("hi", GenerationConfig(seed=0, max_tokens=15, sample=False))
     else:
         from tts_tpu_torch.models import orpheus
         path = write_random_orpheus(sys.argv[1], qtype=qtype.split("-")[-1], **TINY,
@@ -147,7 +175,8 @@ SCRIPT = textwrap.dedent("""
 
 
 @pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0", "kokoro", "parler-Q8_0", "parler-Q4_0",
-                                   "dia-Q8_0", "dia-Q4_0", "orpheus-stream-Q8_0", "apps"])
+                                   "dia-Q8_0", "dia-Q4_0", "orpheus-stream-Q8_0", "apps",
+                                   "parallel"])
 def test_port_runs_without_jax(tmp_path, qtype):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.path.join(ROOT, "tests"), os.environ.get("PYTHONPATH", "")]))

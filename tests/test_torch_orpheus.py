@@ -21,7 +21,9 @@ pytest.importorskip("jax")  # the reference; absent where only the port runs
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_tiny import CTX, GEN, QTYPES, orpheus_logits_along, write_tiny_orpheus  # noqa: E402
+from torch_tiny import (  # noqa: E402
+    CTX, GEN, QTYPES, orpheus_logits_along, orpheus_verify_logits_along, write_tiny_orpheus,
+)
 from tts_tpu.codecs import snac as jsnac  # noqa: E402
 from tts_tpu.core.gguf import GGUFFile as JaxGGUFFile  # noqa: E402
 from tts_tpu.models import orpheus as jo  # noqa: E402
@@ -97,22 +99,6 @@ def _flatten(tree, out):
     else:
         out.append(tree)
     return out
-
-
-def _port_verify_logits_along(tparams, tcfg, prompt, stream, width: int = 8):
-    """Teacher-forced port logits [len(stream), vocab] on the speculative
-    loop's path: row 0 from the prompt's prefill, then `width`-token verify
-    forwards along stream[:-1], whose lm_head is the M = 8 GEMM (f32 x)
-    where a sequential step's is the GEMV (x rounded to bf16)."""
-    cache = to.init_kv_cache(tcfg)
-    rows = [to.orpheus_prefill(tparams, tcfg, torch.tensor(prompt), cache)[None]]
-    T = len(prompt)
-    for i in range(0, len(stream) - 1, width):
-        toks = torch.tensor(stream[i:min(i + width, len(stream) - 1)])
-        positions = torch.arange(T + i, T + i + len(toks), dtype=torch.int32)
-        x = to._orpheus_body(tparams, tcfg, toks, positions, cache, start=T + i)
-        rows.append(to._head_logits(x, tparams, tcfg))
-    return torch.cat(rows)
 
 
 def _assert_greedy_equal(logits, want) -> int:
@@ -301,7 +287,7 @@ def test_generate_matches_jax(tiny, qtype, monkeypatch):
     prompt = (list(to.PREPENDED_TOKENS) + tr.tokenizer.tokenize("zoe: hi there")
               + list(to.APPENDED_TOKENS))
     assert got.timings["prompt_tokens"] == len(prompt)
-    agree = _assert_greedy_equal(_port_verify_logits_along(tr.params, tr.cfg, prompt, jax_toks),
+    agree = _assert_greedy_equal(orpheus_verify_logits_along(tr.params, tr.cfg, prompt, jax_toks),
                                  jax_toks)
     assert port_toks[:agree] == jax_toks[:agree]
     assert got.audio.shape == want.audio.shape == (64 * 512,)
@@ -361,14 +347,17 @@ def test_cuda_without_a_card_raises(gguf):
 
 
 @pytest.mark.parametrize("qtype", QTYPES)
-def test_server_answers_speech(tiny, qtype):
+def test_server_answers_speech(tiny, qtype, monkeypatch):
     """The port's server on port 0, device='cpu': one POST -> a WAV of the
-    right length."""
+    right length.  Data parallelism with no visible card raises (replicas
+    go on cards; nothing falls back to the CPU)."""
     from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
+    from tts_tpu_torch.parallel import serving
 
     gguf = tiny(qtype)[0]
 
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setattr(serving, "serving_devices", lambda n=None: [])
+    with pytest.raises(ValueError, match="0 visible"):
         ServerState({"m": gguf}, GenerationConfig(), data_parallel=True, device="cpu")
     state = ServerState({"tiny": gguf}, GenerationConfig(top_k=50), 1, device="cpu")
     runner, _ = state._get_runner("tiny")

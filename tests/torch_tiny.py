@@ -35,6 +35,27 @@ def orpheus_logits_along(params, cfg, prompt, stream):
     return torch.stack(rows)
 
 
+def orpheus_verify_logits_along(params, cfg, prompt, stream, width: int = 8):
+    """Teacher-forced logits [len(stream), vocab] of the port on the
+    speculative loop's path: row 0 from the prompt's prefill, then
+    `width`-token verify forwards along stream[:-1], whose lm_head is the
+    M = 8 GEMM (f32 x) where a sequential step's is the GEMV (x rounded to
+    bf16)."""
+    import torch
+
+    from tts_tpu_torch.models import orpheus as to
+
+    cache = to.init_kv_cache(cfg)
+    rows = [to.orpheus_prefill(params, cfg, torch.tensor(prompt), cache)[None]]
+    T = len(prompt)
+    for i in range(0, len(stream) - 1, width):
+        toks = torch.tensor(stream[i:min(i + width, len(stream) - 1)])
+        positions = torch.arange(T + i, T + i + len(toks), dtype=torch.int32)
+        x = to._orpheus_body(params, cfg, toks, positions, cache, start=T + i)
+        rows.append(to._head_logits(x, params, cfg))
+    return torch.cat(rows)
+
+
 def write_tiny_orpheus(path, seed: int = 0, head_rows: int | None = None,
                        qtype: str = "Q8_0"):
     """Float weights from the JAX package's builder, quantized to `qtype` by

@@ -17,8 +17,10 @@ fields, error JSON and headers):
 
 A task queue feeds a pool of worker threads that share one runner per model
 (its KV cache makes generation single-flight, under the runner's lock).
-Not carried over: the multi-chip replicas (--data-parallel), tensor
-parallelism and the warmup's bucket pinning; the port serves one device.
+--data-parallel commits one replica per visible card and worker w drives
+replica w % n; --tensor-parallel N cuts each replica over N distinct cards
+(Orpheus; one replica unless --data-parallel), and raises where fewer are
+visible.  Not carried over: the warmup's bucket pinning.
 """
 
 from __future__ import annotations
@@ -49,20 +51,23 @@ class ServerState:
     """Task queue + worker pool; runners come from `runner_from_file` on
     `device`.  All workers share one runner per model, serialized by its
     lock; different models run concurrently, and host-side JSON/WAV work
-    overlaps device compute."""
+    overlaps device compute.  With data_parallel (or tensor_parallel > 1)
+    the runners are replicas on the visible cards instead
+    (`parallel.serving.replica_meshes`): one per (model, card or tp group),
+    worker w driving replica w % n."""
 
     def __init__(self, model_paths: dict[str, str], default_config: GenerationConfig,
                  n_parallelism: int = 1, request_timeout: float = 1800.0,
                  device="cuda", data_parallel: bool = False, tensor_parallel: int = 1):
-        if data_parallel or tensor_parallel > 1:
-            raise NotImplementedError(
-                "tts_tpu_torch serves one device: --data-parallel and "
-                "--tensor-parallel > 1 are not ported yet")
         self.model_paths = model_paths
         self.default_model = next(iter(model_paths))
         self.default_config = default_config
         self.request_timeout = request_timeout
         self.device = device
+        self._targets = None
+        if data_parallel or tensor_parallel > 1:
+            from tts_tpu_torch.parallel.serving import replica_meshes
+            self._targets = replica_meshes(tensor_parallel, None if data_parallel else 1)
         self.tasks: queue.Queue = queue.Queue()
         self.results: dict[str, dict] = {}
         self.abandoned: set[str] = set()      # ids whose submitter timed out
@@ -71,22 +76,30 @@ class ServerState:
         self._runner_locks: dict = {}
         self._cache_lock = threading.Lock()
         self.workers = []
-        for _ in range(max(n_parallelism, 1)):
-            w = threading.Thread(target=self._worker_loop, daemon=True)
+        for wid in range(max(n_parallelism, 1)):
+            w = threading.Thread(target=self._worker_loop, args=(wid,), daemon=True)
             w.start()
             self.workers.append(w)
 
-    def _get_runner(self, model: str):
-        """The model's shared runner and its lock; loads at most once."""
+    def _get_runner(self, model: str, wid: int = 0):
+        """The runner worker `wid` drives for `model`, and its lock; each
+        loads at most once: the model's one shared runner, or under data
+        parallelism the replica (model, wid % n) on its card or tp group."""
+        key = model if self._targets is None else (model, wid % len(self._targets))
         with self._cache_lock:
-            lock = self._runner_locks.setdefault(model, threading.Lock())
+            lock = self._runner_locks.setdefault(key, threading.Lock())
         with lock:
-            if model not in self._runners:
-                self._runners[model] = runner_from_file(
-                    self.model_paths[model], self.default_config, device=self.device)
-        return self._runners[model], lock
+            if key not in self._runners:
+                if isinstance(key, tuple):
+                    from tts_tpu_torch.parallel.serving import load_replica
+                    self._runners[key] = load_replica(
+                        self.model_paths[model], self.default_config, self._targets[key[1]])
+                else:
+                    self._runners[key] = runner_from_file(
+                        self.model_paths[model], self.default_config, device=self.device)
+        return self._runners[key], lock
 
-    def _worker_loop(self):
+    def _worker_loop(self, wid: int = 0):
         while True:
             task = self.tasks.get()
             if task is None:
@@ -94,7 +107,7 @@ class ServerState:
             result = {"success": False, "message": "unknown error"}
             t0 = time.perf_counter()
             try:
-                runner, lock = self._get_runner(task["model"])
+                runner, lock = self._get_runner(task["model"], wid)
                 if task["kind"] == "tts_stream":
                     # a runner with generate_stream (Kokoro) sends each chunk
                     # as it is made; the others send the whole utterance
@@ -126,7 +139,7 @@ class ServerState:
                 elif task["kind"] == "voices":
                     voices = {}
                     for m in self.model_paths:
-                        r, l = self._get_runner(m)
+                        r, l = self._get_runner(m, wid)
                         with l:
                             voices[m] = r.list_voices()
                     result = {"success": True, "voices": voices}
@@ -395,9 +408,13 @@ def main(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--n-parallelism", "-np", type=int, default=1,
-                   help="worker threads (sharing one runner per model)")
-    p.add_argument("--data-parallel", action="store_true", help="not ported yet")
-    p.add_argument("--tensor-parallel", type=int, default=1, help="not ported yet")
+                   help="worker threads (sharing one runner per model unless "
+                        "--data-parallel)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="commit one model replica per visible card and route "
+                        "workers across them")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="shard each replica over this many distinct cards (Orpheus)")
     p.add_argument("--voice", "-v", default="")
     p.add_argument("--temperature", "-t", type=float, default=1.0)
     p.add_argument("--topk", "-tk", type=int, default=50)

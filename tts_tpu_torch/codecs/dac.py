@@ -98,6 +98,7 @@ class DACDecoder:
     """Host wrapper: codes [T, 9] -> float32 PCM numpy."""
 
     sample_rate = 44100
+    device_arrays = ("params",)
     # receptive field in frames: in-conv +/-3, layer-1 residual units
     # +/-39/8, transposed-conv kernels +/-~1 each, deeper layers sub-frame;
     # 16 gives margin (tests hold a windowed decode to the full one)

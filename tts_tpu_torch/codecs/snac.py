@@ -165,6 +165,7 @@ class SNACDecoder:
     """Host wrapper: three token lists at rates x4/x2/x1 -> float32 PCM."""
 
     sample_rate = 24000
+    device_arrays = ("params",)
     # ~12 fine-rate frames of receptive field per side (in-conv +/-3, layer-1
     # residual units +/-39/8, transposed-conv kernels +/-~1 each, the rest
     # sub-frame); 16 gives margin (tests hold a windowed decode to the full one)

@@ -531,6 +531,8 @@ def _sync(device: torch.device):
 class DiaRunner(TTSRunner):
     sample_rate = 44100
     architecture = "dia"
+    device_arrays = ("params", "_cache")
+    device_components = ("dac",)
 
     def __init__(self, cfg: DiaConfig, params: dict, dac: DACDecoder, device=None):
         """`device` defaults to the device the params live on."""

@@ -15,7 +15,10 @@ shapes:
 
 The JAX package pads to token and frame buckets, with masks that make a
 padded run equal an exact-shape run, so exact shapes change no result and
-the port carries no masks.  `cfg.compute_dtype` (bf16 by default) is the
+synthesis carries no masks.  The duration predictor alone takes a batch
+and a token mask (`duration_raw`), for the trainer's padded batches
+(`parallel/training.py`): a trailing pad only, which is all the JAX
+trainer's batches hold.  `cfg.compute_dtype` (bf16 by default) is the
 dtype of the frame-rate activations; norm statistics, the F0/N curves, the
 harmonic phase, the output conv and the iSTFT stay f32, as in the JAX
 package.  No Pallas kernel stands on this path: its compute is convolutions
@@ -49,6 +52,7 @@ from tts_tpu_torch.ops.conv import conv1d, conv_transpose1d, reflect_pad_front
 from tts_tpu_torch.ops.lstm import bilstm, flatten_bilstm, pack_lstm_params
 from tts_tpu_torch.ops.resample import upsample_linear, upsample_nearest
 from tts_tpu_torch.ops.stft import hann_window, istft, stft
+from tts_tpu_torch.parallel.mesh import Shards
 
 
 @dataclass(frozen=True)
@@ -348,49 +352,129 @@ def params_from_jax(np_params, device="cpu"):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _albert_encode(albert: dict, cfg: KokoroConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """ALBERT encoder, n_recurrence passes of the shared layer (parity:
-    kokoro/model.cpp:961-1008), at the exact token count: no key mask."""
-    T = tokens.shape[0]
-    H, D = cfg.n_attn_heads, cfg.head_size
+def _albert_embed(albert: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, T] -> the embeddings projected to the hidden width."""
+    T = tokens.shape[1]
     x = albert["token_embd"][tokens] + albert["position_embd"][:T] + albert["token_type"]
     x = layer_norm(x, eps=1e-12) * albert["norm_w"] + albert["norm_b"]
-    x = x @ albert["embd_w"] + albert["embd_b"]
-    scale = 1.0 / math.sqrt(D)
+    return x @ albert["embd_w"] + albert["embd_b"]
+
+
+def _key_bias(token_mask: torch.Tensor | None):
+    """[B, T] mask -> the attention logits' [B, 1, 1, T] key bias (0 or
+    -1e9, as the JAX package adds), or None for no mask."""
+    if token_mask is None:
+        return None
+    return torch.where(token_mask[:, None, None, :] > 0, 0.0, -1e9)
+
+
+def _attend(q, k, v, key_bias, scale: float) -> torch.Tensor:
+    """q/k/v [B, T, H, D] -> [B, T, H * D]."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if key_bias is not None:
+        logits = logits + key_bias
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v).flatten(2)
+
+
+def _albert_layer(x: torch.Tensor, L: dict, cfg: KokoroConfig, key_bias) -> torch.Tensor:
+    """One pass of the shared layer over x [B, T, hidden].  A layer that
+    `parallel/training.py` cut over tp holds `Shards`: q/k/v and the FFN in
+    by output features, o and the FFN out by input features.  Shard j
+    computes its heads (and FFN columns) on its device, the row-parallel
+    partial products are summed on x's device, and their bias is added
+    once, after the sum.  A plain tensor is one shard."""
+    def shard(name: str, j: int) -> torch.Tensor:
+        w = L[name]
+        return w[j] if isinstance(w, Shards) else w
+
+    lead = x.device
+    B, T = x.shape[:2]
+    tp = len(L["q_w"]) if isinstance(L["q_w"], Shards) else 1
+    if cfg.n_attn_heads % tp:
+        raise ValueError(f"{cfg.n_attn_heads} attention heads do not split over tp={tp}")
+    H, D = cfg.n_attn_heads // tp, cfg.head_size
+    attn = ffn = None
+    for j in range(tp):
+        d = shard("q_w", j).device
+        xj = x.to(d)
+        q, k, v = ((xj @ shard(f"{n}_w", j) + shard(f"{n}_b", j)).reshape(B, T, H, D)
+                   for n in "qkv")
+        a = _attend(q, k, v, None if key_bias is None else key_bias.to(d), 1.0 / math.sqrt(D))
+        part = (a @ shard("o_w", j)).to(lead)
+        attn = part if attn is None else attn + part
+    x = attn + L["o_b"] + x
+    x = layer_norm(x, eps=1e-12) * L["post_attn_norm_w"] + L["post_attn_norm_b"]
+    for j in range(tp):
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(x.to(shard("ffn_w", j).device) @ shard("ffn_w", j) + shard("ffn_b", j),
+                   approximate="tanh")
+        part = (h @ shard("ffn_out_w", j)).to(lead)
+        ffn = part if ffn is None else ffn + part
+    x = ffn + L["ffn_out_b"] + x
+    return layer_norm(x, eps=1e-12) * L["post_ffn_norm_w"] + L["post_ffn_norm_b"]
+
+
+def _albert_encode(albert: dict, cfg: KokoroConfig, tokens: torch.Tensor,
+                   token_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """ALBERT encoder, n_recurrence passes of the shared layer (parity:
+    kokoro/model.cpp:961-1008) over tokens [B, T]; token_mask [B, T] masks
+    the keys, as the JAX package's does."""
+    x = _albert_embed(albert, tokens)
+    key_bias = _key_bias(token_mask)
     for _ in range(cfg.n_recurrence):
         for L in albert["layers"]:
-            q = (x @ L["q_w"] + L["q_b"]).reshape(T, H, D)
-            k = (x @ L["k_w"] + L["k_b"]).reshape(T, H, D)
-            v = (x @ L["v_w"] + L["v_b"]).reshape(T, H, D)
-            w = torch.softmax(torch.einsum("qhd,khd->hqk", q, k) * scale, dim=-1)
-            attn = torch.einsum("hqk,khd->qhd", w, v).reshape(T, cfg.hidden_size)
-            x = attn @ L["o_w"] + L["o_b"] + x
-            x = layer_norm(x, eps=1e-12) * L["post_attn_norm_w"] + L["post_attn_norm_b"]
-            # jax.nn.gelu's default is the tanh approximation
-            h = F.gelu(x @ L["ffn_w"] + L["ffn_b"], approximate="tanh")
-            x = h @ L["ffn_out_w"] + L["ffn_out_b"] + x
-            x = layer_norm(x, eps=1e-12) * L["post_ffn_norm_w"] + L["post_ffn_norm_b"]
+            x = _albert_layer(x, L, cfg, key_bias)
     return x
 
 
-def duration_raw(params: dict, cfg: KokoroConfig, tokens: torch.Tensor,
-                 style: torch.Tensor):
-    """tokens [T], style [style_half] (the voice row's prosody half) ->
-    (pre-round duration sums [T], hidden [T, dur_hidden + style_half])."""
-    dp = params["dp"]
-    x = _albert_encode(params["albert"], cfg, tokens)
+def trailing_lengths(token_mask: torch.Tensor) -> torch.Tensor:
+    """[B, T] mask -> each row's valid length (host int64, at least 1: a row
+    with no valid token runs one step that its zero mask discards).  A mask
+    that is not a trailing pad (ones, then zeros) raises: the JAX package's
+    masked carry takes any mask, the port's packed LSTMs a prefix alone."""
+    valid = token_mask.detach().cpu() > 0
+    lengths = valid.sum(-1)
+    if not torch.equal(valid, torch.arange(valid.shape[-1]) < lengths[:, None]):
+        raise ValueError("duration_raw: token_mask must be a trailing pad per row "
+                         "(valid tokens first, then padding)")
+    return lengths.clamp(min=1)
+
+
+def duration_tail(dp: dict, x: torch.Tensor, style: torch.Tensor, lengths=None):
+    """The prosody biLSTM stack after ALBERT: x [B, T, hidden], style [B,
+    style_half] -> (pre-round duration sums [B, T], hidden [B, T,
+    dur_hidden + style_half]); `lengths` as `ops.lstm.bilstm` takes them."""
     x = x @ dp["encode_w"] + dp["encode_b"]
-    style_row = style.expand(x.shape[0], style.shape[0])
+    style_row = style[:, None, :].expand(x.shape[0], x.shape[1], style.shape[-1])
     x = torch.cat([x, style_row], dim=-1)
     for layer in dp["layers"]:
-        x = bilstm(x, layer["lstm"]["fwd"], layer["lstm"]["bwd"])
-        gamma = style @ layer["gamma_w"] + layer["gamma_b"]
-        beta = style @ layer["beta_w"] + layer["beta_b"]
+        x = bilstm(x, layer["lstm"]["fwd"], layer["lstm"]["bwd"], lengths)
+        gamma = (style @ layer["gamma_w"] + layer["gamma_b"])[:, None]
+        beta = (style @ layer["beta_w"] + layer["beta_b"])[:, None]
         x = torch.cat([ada_layer_norm(x, gamma, beta), style_row], dim=-1)
     hidden = x
-    y = bilstm(x, dp["duration_lstm"]["fwd"], dp["duration_lstm"]["bwd"])
+    y = bilstm(x, dp["duration_lstm"]["fwd"], dp["duration_lstm"]["bwd"], lengths)
     y = torch.sigmoid(y @ dp["duration_proj_w"] + dp["duration_proj_b"])
     return y.sum(-1), hidden
+
+
+def duration_raw(params: dict, cfg: KokoroConfig, tokens: torch.Tensor,
+                 style: torch.Tensor, token_mask: torch.Tensor | None = None):
+    """tokens [T] or [B, T], style [style_half] or [B, style_half] (the voice
+    row's prosody half), token_mask (optional, [T] or [B, T], a trailing pad:
+    `trailing_lengths`) -> (pre-round duration sums [(B,) T], hidden [(B,) T,
+    dur_hidden + style_half]).  With a mask, every valid position equals
+    the unpadded run of its example; positions past it are not that run's
+    and only a masked loss may read them."""
+    single = tokens.ndim == 1
+    if single:
+        tokens, style = tokens[None], style[None]
+        token_mask = None if token_mask is None else token_mask[None]
+    lengths = None if token_mask is None else trailing_lengths(token_mask)
+    x = _albert_encode(params["albert"], cfg, tokens, token_mask)
+    sums, hidden = duration_tail(params["dp"], x, style, lengths)
+    return (sums[0], hidden[0]) if single else (sums, hidden)
 
 
 def duration_forward(params: dict, cfg: KokoroConfig, tokens: torch.Tensor,
@@ -591,6 +675,8 @@ def generator_tail(gen: dict, cfg: KokoroConfig, cur: torch.Tensor, har_spec: to
 class KokoroModel:
     """Config, params and the iSTFT window, all on one device."""
 
+    device_arrays = ("params", "window")
+
     def __init__(self, cfg: KokoroConfig, params: dict, device="cpu"):
         self.cfg = cfg
         self.params = params
@@ -609,6 +695,11 @@ class KokoroModel:
             if width // 2 != cfg.style_half_size:
                 cfg = dataclasses.replace(cfg, style_half_size=width // 2)
         return cls(cfg, params, device)
+
+    def placed(self) -> None:
+        """After `parallel.serving.move_to_device`: flatten the LSTM weights
+        into cuDNN's buffer on the new device, as the loader does."""
+        _flatten_lstms(self.params)
 
     def voice_style(self, voice: str, n_tokens: int):
         """The voice pack's row for n_tokens tokens (model.cpp:1013,1150: row

@@ -33,6 +33,7 @@ DEFAULT_VOICE = "af_heart"
 class KokoroRunner(TTSRunner):
     sample_rate = 24000
     architecture = "kokoro"
+    device_components = ("model",)
 
     def __init__(self, model: KokoroModel, tokenizer: SinglePassTokenizer,
                  phonemizer: Phonemizer, config: GenerationConfig):

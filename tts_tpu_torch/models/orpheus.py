@@ -20,9 +20,19 @@ chunks and decodes SNAC windows held RECEPTIVE_FRAMES behind the head.
 The cache is reused unzeroed: a forward reads only the slots it or an
 earlier one of its request wrote.
 
+Tensor parallelism (`make_tp_context`, the runner's `mesh=`) cuts the
+linears over a ("tp",) mesh (`parallel/mesh.py`), as the JAX package's
+shard_map islands do: q/k/v/gate/up/head by output columns, o/down by input
+rows (their partial products added on the lead device), and the KV cache
+by KV heads, each shard running the same kernels on its slice
+(`_tp_qlinear`, `_attend_cache`).
+
 Not ported: the prompt buckets (prefill runs the exact prompt length), the
-AOT export cache, and the tensor-parallel shard_map islands
-(`make_tp_context`, `_tp_qlinear`, `_flash_decode_tp`).
+AOT export cache, and, of tensor parallelism, the `_TP_MESHES` registry
+with its `jax.clear_caches` (the params carry their shards here) and the
+rule that turns flash and kv_quant off when a shard holds fewer than 2 KV
+heads (single-row DMA stripes are illegal in Mosaic, the TPU kernel
+compiler; `flash_decode` has no such limit).
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from tts_tpu_torch.ops.attention import S_CHUNK, arrival_counters, flash_decode,
 from tts_tpu_torch.ops.qmatmul import linear, linear_format, pack_q4_weight, pack_q8_weight
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_drafts, spec_enabled
+from tts_tpu_torch.parallel.mesh import Shards, named, place, replicated, tree_map
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSResponse, TTSRunner
 from tts_tpu_torch.text.tokenizers import BPETokenizer
 
@@ -60,9 +71,12 @@ _LOOKAHEAD = 1
 
 @dataclass(frozen=True)
 class OrpheusConfig:
-    """The JAX package's config without its TPU-only fields (use_flash_attn:
-    decode here always takes the flash kernel; tp: no tensor parallelism)
-    and the BOS/EOS ids, which only the tokenizer reads."""
+    """The JAX package's config without use_flash_attn (decode here always
+    takes the flash kernel, under tensor parallelism too: the JAX package
+    turns it off where a shard would hold fewer than 2 KV heads, a Mosaic
+    limit `flash_decode` does not have) and the BOS/EOS ids, which only the
+    tokenizer reads.  `tp` is the tensor-parallel degree that
+    `make_tp_context` set: > 1 when the linears are cut into shards."""
     n_layers: int = 28
     hidden_size: int = 3072
     n_attn_heads: int = 24
@@ -74,6 +88,7 @@ class OrpheusConfig:
     stopping_token_id: int = 128258
     rope_theta: float = 500000.0
     kv_quant: bool = False          # int8 KV cache with per-(head, position) scales
+    tp: int = 1
     lenient_codes: bool = False     # random-weight test GGUFs only
 
     @property
@@ -174,6 +189,156 @@ def load_orpheus_params(tensors: dict, cfg: OrpheusConfig, device="cpu",
     return p
 
 
+def _qlin_shardable(p: dict, tp: int, out_sharded: bool) -> bool:
+    """True if a quantized linear's shards stay kernel-legal under a
+    degree-`tp` split: column-parallel cuts N (the scales [K/32, N] the same
+    way); row-parallel cuts K, which must keep whole 32-row scale blocks
+    per shard, and int4 not at all: its rows pack (k, k + K/2) pairs into
+    one byte, which a K split would tear apart."""
+    K32, N = p["scales"].shape
+    if out_sharded:
+        return N % tp == 0
+    return K32 % tp == 0 and "wq4" not in p
+
+
+def orpheus_param_specs(params: dict, tp: int = 1) -> dict:
+    """The spec tree (see `parallel.mesh.Sharding`) of tensor parallelism:
+    q/k/v/gate/up (fused or not) and the head split by output columns, o
+    and down by input rows, dense linears always, quantized ones where
+    `_qlin_shardable`; the rest replicated."""
+    def lin_spec(p, out_sharded):
+        if "w" not in p and not _qlin_shardable(p, max(tp, 1), out_sharded):
+            return {k: () for k in p}
+        spec = (None, "tp") if out_sharded else ("tp", None)
+        return {k: spec for k in p}
+
+    specs = tree_map(lambda _: (), params)
+    for L, Ls in zip(params["layers"], specs["layers"]):
+        for n in ("q", "k", "v", "gate", "up", "qkv", "gateup"):
+            if n in L:
+                Ls[n] = lin_spec(L[n], True)
+        for n in ("o", "down"):
+            Ls[n] = lin_spec(L[n], False)
+    specs["head"] = lin_spec(params["head"], True)
+    return specs
+
+
+def _pad_cols(p: dict, mult: int) -> dict:
+    """Zero-pad a linear's output columns (and scales) to a multiple of `mult`."""
+    pad = (-next(iter(p.values())).shape[1]) % mult
+    return p if pad == 0 else {k: torch.nn.functional.pad(t, (0, pad)) for k, t in p.items()}
+
+
+def _unfuse_for_tp(params: dict, cfg: OrpheusConfig) -> dict:
+    """Split the loader's fused qkv and gateup back into their projections:
+    a column shard of the fused matrix would cross projection boundaries
+    (one shard all of gate, the other all of up).  One device keeps the
+    fusion (one launch instead of three)."""
+    def split_lin(p, sizes):
+        parts = {k: torch.split(t, sizes, dim=1) for k, t in p.items()}
+        return [{k: parts[k][i] for k in p} for i in range(len(sizes))]
+
+    Hq, Hkv, hs = cfg.n_attn_heads, cfg.n_kv_attn_heads, cfg.head_size
+    layers = []
+    for L in params["layers"]:
+        L = dict(L)
+        if "qkv" in L:
+            L["q"], L["k"], L["v"] = split_lin(L.pop("qkv"), [Hq * hs, Hkv * hs, Hkv * hs])
+        if "gateup" in L:
+            n = L["gateup"]["scales"].shape[1] // 2
+            L["gate"], L["up"] = split_lin(L.pop("gateup"), [n, n])
+        layers.append(L)
+    return {**params, "layers": layers}
+
+
+def _all_quant_shardable(params: dict, tp: int) -> bool:
+    """Every quantized linear must shard for cfg.tp to be set: one that
+    cannot keeps the whole model replicated (so Q4_0's row-parallel o and
+    down keep a Q4_0 Orpheus at tp = 1, and Q8_0 shards)."""
+    for L in params["layers"]:
+        for n in ("q", "k", "v", "gate", "up", "qkv", "gateup"):
+            if n in L and "w" not in L[n] and not _qlin_shardable(L[n], tp, True):
+                return False
+        for n in ("o", "down"):
+            if "w" not in L[n] and not _qlin_shardable(L[n], tp, False):
+                return False
+    return "w" in params["head"] or _qlin_shardable(params["head"], tp, True)
+
+
+def make_tp_context(params: dict, cfg: OrpheusConfig, mesh):
+    """Tensor-parallel placement over `mesh` (axis "tp"): returns (params,
+    cache, cfg).  Each linear splits per `orpheus_param_specs` into a
+    `Shards` of linear dicts, shard j on the mesh's j-th device (the head
+    padded to 256 * tp columns first, so every shard stays kernel-legal);
+    the KV cache splits by KV heads into a `Shards` of caches, each with
+    its own flash-decode counters, when both head counts divide tp, and is
+    replicated on the lead device otherwise.  The returned cfg carries tp.
+
+    Where a quantized linear cannot split (`_all_quant_shardable`, as in
+    the JAX package) the model stays whole on the lead device, fused, with
+    cfg.tp = 1, and a warning says so.  A dense linear whose dims tp does
+    not divide raises."""
+    tp = mesh.shape["tp"]
+    lead = mesh.lead
+    split = None
+    if tp > 1:
+        split = _unfuse_for_tp(params, cfg)
+        split = {**split, "head": _pad_cols(split["head"], 256 * tp)}
+        if not _all_quant_shardable(split, tp):
+            logging.getLogger("tts_tpu_torch").warning(
+                "orpheus: a quantized linear does not split over tp=%d (an int4 row-parallel "
+                "linear, or a width tp does not divide): the model stays whole on %s", tp, lead)
+            split = None
+    if split is None:
+        params = tree_map(lambda t: place(t, replicated(mesh)), params)
+        return params, init_kv_cache(cfg, lead), dataclasses.replace(cfg, tp=1)
+
+    def shard(p, spec):
+        placed = {k: place(t, named(mesh, *spec[k])) for k, t in p.items()}
+        return Shards({k: v[j] for k, v in placed.items()} for j in range(tp))
+
+    specs = orpheus_param_specs(split, tp)
+    layers = []
+    for L, Ls in zip(split["layers"], specs["layers"]):
+        layers.append({n: shard(v, Ls[n]) if isinstance(v, dict) else place(v, replicated(mesh))
+                       for n, v in L.items()})
+    params = {**{k: place(v, replicated(mesh)) for k, v in split.items()
+                 if k not in ("layers", "head")},
+              "head": shard(split["head"], specs["head"]), "layers": layers}
+    cfg = dataclasses.replace(cfg, tp=tp)
+    Hq, Hkv = cfg.n_attn_heads, cfg.n_kv_attn_heads
+    if Hkv % tp or Hq % tp:
+        return params, init_kv_cache(cfg, lead), cfg
+    local = dataclasses.replace(cfg, n_attn_heads=Hq // tp, n_kv_attn_heads=Hkv // tp)
+    return params, Shards(init_kv_cache(local, d) for d in mesh.axis_devices("tp")), cfg
+
+
+def _device(p: dict) -> torch.device:
+    return next(iter(p.values())).device
+
+
+def _tp_qlinear(x: torch.Tensor, shards: Shards, *, col: bool) -> torch.Tensor:
+    """A linear cut into shards, on x [T, K] on the lead device.  Column-
+    parallel: each shard's kernel makes its output columns, which are
+    concatenated; row-parallel: shard j takes x's j-th K slice, and the
+    partial products are added in shard order."""
+    if col:
+        return torch.cat([linear(x.to(_device(s)), s).to(x.device) for s in shards], dim=-1)
+    k = x.shape[-1] // len(shards)
+    out = None
+    for j, s in enumerate(shards):
+        part = linear(x[:, j * k:(j + 1) * k].to(_device(s)).contiguous(), s).to(x.device)
+        out = part if out is None else out + part
+    return out
+
+
+def _lin(x: torch.Tensor, p, *, col: bool) -> torch.Tensor:
+    """`linear`, or `_tp_qlinear` for a linear that make_tp_context cut."""
+    if isinstance(p, Shards):
+        return _tp_qlinear(x, p, col=col)
+    return linear(x, p)
+
+
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     n = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
@@ -201,8 +366,8 @@ def _head_logits(x: torch.Tensor, params: dict, cfg: OrpheusConfig) -> torch.Ten
     of a verify forward -> [T, vocab] (the GEMM); slices off the tile
     padding."""
     if x.ndim == 1:
-        return linear(x.float()[None], params["head"])[0, : cfg.vocab_size]
-    return linear(x.float(), params["head"])[:, : cfg.vocab_size]
+        return _lin(x.float()[None], params["head"], col=True)[0, : cfg.vocab_size]
+    return _lin(x.float(), params["head"], col=True)[:, : cfg.vocab_size]
 
 
 def padded_cache_length(cfg: OrpheusConfig) -> int:
@@ -226,36 +391,87 @@ def init_kv_cache(cfg: OrpheusConfig, device="cpu") -> dict:
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device), "counters": counters}
 
 
-def _gqa_attention(q, k, v, mask, cfg: OrpheusConfig):
+def _gqa_attention(q, k, v, mask):
     """q [T, Hq, hs] against head-major k/v [Hkv, Tk, hs], in f32, without
     repeating KV heads (the prefill path; no kernel served it on the TPU)."""
-    Hkv = cfg.n_kv_attn_heads
-    T = q.shape[0]
-    qg = q.reshape(T, Hkv, cfg.n_attn_heads // Hkv, cfg.head_size).float()
-    logits = torch.einsum("qhgd,hkd->hgqk", qg, k.float()) / math.sqrt(cfg.head_size)
+    T, Hq, hs = q.shape
+    Hkv = k.shape[0]
+    qg = q.reshape(T, Hkv, Hq // Hkv, hs).float()
+    logits = torch.einsum("qhgd,hkd->hgqk", qg, k.float()) / math.sqrt(hs)
     w = torch.softmax(logits + mask, dim=-1)
     attn = torch.einsum("hgqk,hkd->qhgd", w, v.float())
-    return attn.reshape(T, cfg.n_attn_heads * cfg.head_size)
+    return attn.reshape(T, Hq * hs)
+
+
+def _cache_shards(cache) -> tuple:
+    """The KV cache as its shards: one, or make_tp_context's split by KV heads."""
+    return tuple(cache) if isinstance(cache, Shards) else (cache,)
+
+
+def _attend_cache(q, k, v, l: int, caches: tuple, where: list, end: int) -> torch.Tensor:
+    """Write K/V of this forward into layer l of the cache and attend: q
+    [T, Hq, hs], k/v [T, Hkv, hs] -> [T, Hq * hs] f32 on q's device.  Cache
+    shard j holds KV heads j * Hkv / n onwards and takes the matching query
+    heads, on its own device; `where[j]` is (positions, slots, mask) there.
+    T == 1 runs flash_decode on each shard with the shard's own arrival
+    counters (the JAX package's `_flash_decode_tp`); T > 1 attends
+    causally over the live slots [0, end)."""
+    n = len(caches)
+    T, Hq, hs = q.shape
+    hq, hkv = Hq // n, k.shape[1] // n
+    parts = []
+    for j, (c, (positions, slots, mask)) in enumerate(zip(caches, where)):
+        d = c["k"].device
+        qj, kj, vj = ((q, k, v) if n == 1 else
+                      (t[:, j * h:(j + 1) * h].to(d) for t, h in ((q, hq), (k, hkv), (v, hkv))))
+        ck, cv = c["k"][l], c["v"][l]
+        quant = "ks" in c
+        if quant:
+            kq, ksc = quantize_kv(kj)
+            vq, vsc = quantize_kv(vj)
+            cks, cvs = c["ks"][l], c["vs"][l]
+            ck.index_copy_(1, slots, kq.transpose(0, 1))
+            cv.index_copy_(1, slots, vq.transpose(0, 1))
+            cks.index_copy_(1, slots, ksc.t())
+            cvs.index_copy_(1, slots, vsc.t())
+        else:
+            ck.index_copy_(1, slots, kj.transpose(0, 1).to(ck.dtype))
+            cv.index_copy_(1, slots, vj.transpose(0, 1).to(cv.dtype))
+        if T == 1:
+            attn = flash_decode(qj[0].float(), ck, cv, positions, cks if quant else None,
+                                cvs if quant else None, c["counters"])
+        elif quant:
+            attn = _gqa_attention(qj, ck[:, :end].float() * cks[:, :end, None],
+                                  cv[:, :end].float() * cvs[:, :end, None], mask)
+        else:
+            attn = _gqa_attention(qj, ck[:, :end], cv[:, :end], mask)
+        parts.append(attn.reshape(T, hq * hs).to(q.device))
+    return parts[0] if n == 1 else torch.cat(parts, dim=-1)
 
 
 def _orpheus_body(params: dict, cfg: OrpheusConfig, tokens: torch.Tensor,
-                  positions: torch.Tensor, cache: dict, start: int = 0) -> torch.Tensor:
+                  positions: torch.Tensor, cache, start: int = 0) -> torch.Tensor:
     """tokens/positions [T] -> final-normed hidden [T, H] (bf16), writing K/V
     at `positions` into `cache` in place.  T == 1 is a decode step (flash
     kernel; positions is the device int32 position); T > 1 runs at the
     positions start..start+T-1 (the prefill from 0, a verify window) and
     attends causally over the live slots [0, start + T) alone: slots past
-    them may hold a rejected draft's K/V and are never read."""
+    them may hold a rejected draft's K/V and are never read.  Under tensor
+    parallelism (params and cache from make_tp_context) the linears and
+    the cache are cut into shards and x stays on the lead device."""
     T = tokens.shape[0]
     x = params["embd"][tokens.long()]
-    quant = "ks" in cache
     Hq, Hkv, hs = cfg.n_attn_heads, cfg.n_kv_attn_heads, cfg.head_size
     cos, sin = _rope_tables(positions, params["rope_factors"], cfg.rope_theta, hs)
-    slots = positions.long()
     end = start + T
+    mask = None
     if T > 1:
         key_pos = torch.arange(end, device=x.device)
         mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, -1e9)
+    caches = _cache_shards(cache)
+    slots = positions.long()
+    where = [(positions.to(d), slots.to(d), None if mask is None else mask.to(d))
+             for d in (c["k"].device for c in caches)]
 
     for l, L in enumerate(params["layers"]):
         res = x
@@ -264,39 +480,19 @@ def _orpheus_body(params: dict, cfg: OrpheusConfig, tokens: torch.Tensor,
             qkv = linear(h, L["qkv"]).to(x.dtype)
             q, k, v = torch.split(qkv, [Hq * hs, Hkv * hs, Hkv * hs], dim=-1)
         else:
-            q, k, v = (linear(h, L[n]).to(x.dtype) for n in ("q", "k", "v"))
+            q, k, v = (_lin(h, L[n], col=True).to(x.dtype) for n in ("q", "k", "v"))
         q = _rope(q.reshape(T, Hq, hs), cos, sin)
         k = _rope(k.reshape(T, Hkv, hs), cos, sin)
-        v = v.reshape(T, Hkv, hs)
-        ck, cv = cache["k"][l], cache["v"][l]
-        if quant:
-            kq, ksc = quantize_kv(k)
-            vq, vsc = quantize_kv(v)
-            cks, cvs = cache["ks"][l], cache["vs"][l]
-            ck.index_copy_(1, slots, kq.transpose(0, 1))
-            cv.index_copy_(1, slots, vq.transpose(0, 1))
-            cks.index_copy_(1, slots, ksc.t())
-            cvs.index_copy_(1, slots, vsc.t())
-        else:
-            ck.index_copy_(1, slots, k.transpose(0, 1).to(ck.dtype))
-            cv.index_copy_(1, slots, v.transpose(0, 1).to(cv.dtype))
-        if T == 1:
-            attn = flash_decode(q[0].float(), ck, cv, positions, cks if quant else None,
-                                cvs if quant else None, cache["counters"])
-        elif quant:
-            attn = _gqa_attention(q, ck[:, :end].float() * cks[:, :end, None],
-                                  cv[:, :end].float() * cvs[:, :end, None], mask, cfg)
-        else:
-            attn = _gqa_attention(q, ck[:, :end], cv[:, :end], mask, cfg)
-        x = res + linear(attn.reshape(T, Hq * hs).to(x.dtype), L["o"]).to(x.dtype)
+        attn = _attend_cache(q, k, v.reshape(T, Hkv, hs), l, caches, where, end)
+        x = res + _lin(attn.to(x.dtype), L["o"], col=False).to(x.dtype)
         res = x
         h = _rms(x, L["post_norm"])
         if "gateup" in L:
             gate, up = linear(h, L["gateup"]).chunk(2, dim=-1)
         else:
-            gate, up = linear(h, L["gate"]), linear(h, L["up"])
-        h = linear((torch.nn.functional.silu(gate) * up).to(x.dtype), L["down"]).to(x.dtype)
-        x = res + h
+            gate, up = _lin(h, L["gate"], col=True), _lin(h, L["up"], col=True)
+        h = _lin((torch.nn.functional.silu(gate) * up).to(x.dtype), L["down"], col=False)
+        x = res + h.to(x.dtype)
     return _rms(x, params["out_norm"])
 
 
@@ -388,7 +584,7 @@ def orpheus_decode_loop_spec_resume(params: dict, cfg: OrpheusConfig, token: int
     i, pos = i0, start_pos
     device = params["embd"].device
     rows = params["embd"].shape[0]
-    S = cache["k"].shape[2]
+    S = _cache_shards(cache)[0]["k"].shape[2]
     stop = cfg.stopping_token_id
     while i < limit and token != stop:
         drafts = (np.full(k, -1, np.int32) if force_miss
@@ -456,11 +652,20 @@ def _sync(device: torch.device):
 class OrpheusRunner(TTSRunner):
     sample_rate = 24000
     architecture = "orpheus"
+    device_arrays = ("params", "_cache")
+    device_components = ("snac",)
 
     def __init__(self, cfg: OrpheusConfig, params: dict, tokenizer: BPETokenizer,
-                 snac: SNACDecoder, device=None):
+                 snac: SNACDecoder, device=None, mesh=None):
         """`device` defaults to the device the params live on (the card,
-        where the loader's default put them)."""
+        where the loader's default put them).  With a ("tp",) `mesh` the
+        runner is tensor-parallel over it (`make_tp_context`, whose cfg it
+        keeps) and lives on the mesh's lead device."""
+        self.mesh = mesh
+        self._cache = None
+        if mesh is not None:
+            params, self._cache, cfg = make_tp_context(params, cfg, mesh)
+            device = mesh.lead
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -468,7 +673,6 @@ class OrpheusRunner(TTSRunner):
         embd = params.get("embd")
         self.device = torch.device(device if device is not None
                                    else embd.device if embd is not None else "cuda")
-        self._cache = None
         self.capture_trace = False
         self.last_trace: dict = {}
         self.load_timings: dict = {}
@@ -612,9 +816,10 @@ class OrpheusRunner(TTSRunner):
 
 
 @register_loader("orpheus")
-def load_orpheus_runner(gguf_file, config: GenerationConfig, device) -> OrpheusRunner:
+def load_orpheus_runner(gguf_file, config: GenerationConfig, device, mesh=None) -> OrpheusRunner:
     """TTS_TPU_ORPHEUS_KV=int8 switches to the int8 KV cache, as in the JAX
-    package."""
+    package.  `mesh`: a ("tp",) mesh to shard over (weights load on
+    `device`, its lead device)."""
     cfg = OrpheusConfig.from_gguf_kv(gguf_file.kv)
     if os.environ.get("TTS_TPU_ORPHEUS_KV", "").lower() == "int8":
         cfg = dataclasses.replace(cfg, kv_quant=True)
@@ -623,7 +828,8 @@ def load_orpheus_runner(gguf_file, config: GenerationConfig, device) -> OrpheusR
     params = load_orpheus_params(dict(gguf_file.tensors), cfg, device, timings)
     snac_tensors = {n: t for n, t in gguf_file.tensors.items() if n.startswith("snac.")}
     snac = SNACDecoder.from_tensors(snac_tensors, gguf_file.kv, device)
-    runner = OrpheusRunner(cfg, params, BPETokenizer.from_gguf_kv(gguf_file.kv), snac, device)
+    runner = OrpheusRunner(cfg, params, BPETokenizer.from_gguf_kv(gguf_file.kv), snac, device,
+                           mesh=mesh)
     _sync(torch.device(device))
     runner.load_timings = {**timings, "total_s": time.perf_counter() - t0}
     return runner

@@ -443,6 +443,8 @@ def _sync(device: torch.device):
 class ParlerRunner(TTSRunner):
     sample_rate = 44100
     architecture = "parler-tts"
+    device_arrays = ("params", "cross_kv", "_cache")
+    device_components = ("dac",)
 
     def __init__(self, cfg: ParlerConfig, params: dict, tokenizer: UnigramTokenizer,
                  dac: DACDecoder, device=None):

@@ -7,6 +7,7 @@ Counterpart of `tts_tpu/models/registry.py`.  Loaders register per GGUF
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable
 
 import torch
@@ -30,16 +31,24 @@ def list_architectures() -> list[str]:
 
 
 def runner_from_file(path: str, config: GenerationConfig | None = None,
-                     device="cuda") -> TTSRunner:
-    """Load a GGUF model file onto `device` and return its runner.  A CUDA
-    device with no card raises TTSError: nothing falls back to the CPU."""
+                     device=None, mesh=None) -> TTSRunner:
+    """Load a GGUF model file onto `device` (default: cuda) and return its
+    runner.  A CUDA device with no card raises TTSError: nothing falls
+    back to the CPU.  `mesh`: a ("tp",) mesh (`parallel.mesh.Mesh`) for the
+    architectures with a tensor-parallel form (Orpheus); the runner then
+    lives on the mesh's devices, loading on its lead device.  Test runners
+    and architectures without a `mesh` parameter raise TTSError."""
     import tts_tpu_torch.models.dia  # noqa: F401  (register their loaders)
     import tts_tpu_torch.models.dummy  # noqa: F401
     import tts_tpu_torch.models.kokoro_runner  # noqa: F401
     import tts_tpu_torch.models.orpheus  # noqa: F401
     import tts_tpu_torch.models.parler  # noqa: F401
 
-    device = torch.device(device)
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.lead:
+            raise TTSError(f"device {device} is not the mesh's lead device {mesh.lead}")
+        device = mesh.lead
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise TTSError("device 'cuda' requested but no CUDA device is available")
     config = config or GenerationConfig()
@@ -47,6 +56,8 @@ def runner_from_file(path: str, config: GenerationConfig | None = None,
         name = path[len("test:"):]
         if name not in _TEST_LOADERS:
             raise TTSError(f"unknown test runner '{name}'")
+        if mesh is not None:
+            raise TTSError("test runners have no tensor-parallel config (mesh=)")
         return _TEST_LOADERS[name](config, device)
 
     f = GGUFFile(path)
@@ -54,4 +65,8 @@ def runner_from_file(path: str, config: GenerationConfig | None = None,
     if arch not in _LOADERS:
         raise TTSError(f"architecture '{arch}' is not supported by tts_tpu_torch "
                        f"(supported: {', '.join(list_architectures())})")
+    if mesh is not None:
+        if "mesh" not in inspect.signature(_LOADERS[arch]).parameters:
+            raise TTSError(f"architecture '{arch}' has no tensor-parallel config (mesh=)")
+        return _LOADERS[arch](f, config, device, mesh=mesh)
     return _LOADERS[arch](f, config, device)

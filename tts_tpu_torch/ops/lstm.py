@@ -12,13 +12,18 @@ concatenates them into cuDNN's [4H, in] / [4H, H] layout (the JAX package's
 is its transpose) and sums the two biases as the JAX package does: `b_ih`
 holds the sum and `b_hh` is zero, so both packages add the same f32 bias.
 
-Not ported: the masked carry-through, which only padded buckets need.
+The JAX package's `mask` passes the carry through at masked steps, so
+with a trailing pad every valid step equals an unpadded run.  The port
+takes each example's valid length instead and runs packed sequences,
+which gives the valid steps the same values (and zeros past them).  A mask
+that is not a trailing pad has no counterpart here: the caller raises.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 
 def pack_lstm_params(tensors: dict, prefix: str, reverse: bool = False,
@@ -56,11 +61,24 @@ def flatten_bilstm(fwd: dict, bwd: dict) -> None:
         torch._cudnn_rnn_flatten_weight(w, 4, in_size, 2, hidden, 0, 1, False, True)
 
 
-def bilstm(x: torch.Tensor, fwd: dict, bwd: dict) -> torch.Tensor:
-    """[T, C_in] -> [T, 2H]: the forward direction's outputs, then the
-    backward direction's, both from zero state."""
+def bilstm(x: torch.Tensor, fwd: dict, bwd: dict, lengths=None) -> torch.Tensor:
+    """[B, T, C_in] -> [B, T, 2H] (or [T, C_in] -> [T, 2H]): the forward
+    direction's outputs, then the backward direction's, both from zero state.  `lengths` [B] (host ints),
+    if given, are the examples' valid prefixes: each runs over its own
+    steps alone, and the outputs past them are zero.  cuDNN's backward
+    needs a forward run with train=True, so the forward takes it whenever
+    autograd records (the trainer); under inference_mode it does not."""
+    if x.ndim == 2:
+        return bilstm(x[None], fwd, bwd)[0]
     hidden = fwd["w_hh"].shape[1]
-    h0 = x.new_zeros(2, 1, hidden)
-    out, _, _ = torch._VF.lstm(x[:, None], (h0, h0), _weights(fwd, bwd), True, 1, 0.0,
-                               False, True, False)
-    return out[:, 0]
+    h0 = x.new_zeros(2, x.shape[0], hidden)
+    weights, train = _weights(fwd, bwd), torch.is_grad_enabled()
+    if lengths is None:
+        out, _, _ = torch._VF.lstm(x, (h0, h0), weights, True, 1, 0.0, train, True, True)
+        return out
+    packed = pack_padded_sequence(x, lengths, batch_first=True, enforce_sorted=False)
+    data, _, _ = torch._VF.lstm(packed.data, packed.batch_sizes, (h0, h0), weights, True, 1,
+                                0.0, train, True)
+    out, _ = pad_packed_sequence(packed._replace(data=data), batch_first=True,
+                                 total_length=x.shape[1])
+    return out

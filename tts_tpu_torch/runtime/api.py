@@ -54,6 +54,10 @@ class TTSRunner:
 
     sample_rate: int = 44100
     architecture: str = "unknown"
+    # device state, for parallel/serving.move_to_device: attributes holding
+    # tensors / nested components that declare their own
+    device_arrays: tuple = ()
+    device_components: tuple = ()
 
     def generate(self, text: str, config: GenerationConfig | None = None) -> TTSResponse:
         raise NotImplementedError
