@@ -4,8 +4,9 @@ port builds, that its kernels agree with their plain versions, that its
 server answers requests from full-width Orpheus-3B, Parler-TTS mini v1 and
 Dia-1.6B models with Q8_0 and with Q4_0 linears, and from Kokoro-82M, that
 its command-line apps (quantize, cli, perf_battery, phonemize) run the same
-models, and that its parallel layer (the duration trainer, Orpheus-3B over
-tp = 2, data-parallel replicas) runs on the card.
+models, that its parallel layer (the duration trainer, Orpheus-3B over
+tp = 2, data-parallel replicas) runs on the card, and that its last modules
+(the native GGUF codecs, the parity report, the Orpheus step breakdown) do.
 
     python3 chip_smoke.py
 
@@ -108,6 +109,21 @@ Phases (any failure exits non-zero, before the final line):
      and both runners' sequential decode tok/s; Q4_0 stays at tp = 1; the
      server's --data-parallel serves a Kokoro-82M request from its one replica,
      and --tensor-parallel 2 raises on one card
+ 11. the last modules: core/native.py builds native/ggufc into build/ and its
+     dequants and quant_q8_0 give the numpy codecs' bits on phase 4's
+     Orpheus-3B Q8_0 and Q4_0 gate_proj; to_numpy over every tensor of phase
+     9's Kokoro-82M Q8_0 and quantized Parler files with the library and with
+     the numpy codecs alone (host s, bit-equal); tts_tpu_torch.tools.parity_report
+     on phase 6's Kokoro-82M (no kernel launched; the durations' frames are the
+     audio's; its audio peaks far past 1, so the reference is the first run's
+     audio array, saved beside its 16-bit WAV as 32-bit float, not the
+     clipped 16-bit WAV) and on phase 4's
+     Orpheus-3B Q4_0 with --max-tokens 70 on the sequential route (launches
+     exact: 113 qgemv_int4 and 28 flash_decode per step, 112 qgemm_int4 per
+     prefill, the rest 0), each saving its WAV and then giving MATCH against
+     it; tools.orpheus_step_breakdown on phase 5's Q8_0 runner and a Q4_0
+     one at KV positions 320 and 3583 (body, head, sample, attn, linears from
+     CUDA-graph replays, residue, graph step, eager step)
 The line before the last is a JSON object of per-kernel results (each
 kernel's launches on its Orpheus path, and by path); the last is
 {"ok": true, "device": {...}}.  It imports only tts_tpu_torch, and fails if
@@ -2594,6 +2610,295 @@ def parallel(card: str, orpheus_q8, q4_path: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 11 ---
+PARITY_ORPHEUS_TOKENS = 70         # --max-tokens of the Orpheus parity report
+# the parts' expected launches per captured call, and the parity reports'
+# verdicts, are held exactly; the native codecs bit for bit
+
+
+def _host_s(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+NATIVE_SWEEP_BLOCKS = (1024, 4096, 16384, 65536, 131072, 262144, 786432)  # Q8_0 blocks
+NATIVE_SWEEP_THREADS = (1, 2, 4, 8, 16)
+# the block counts that split to_numpy's per-tensor times (Kokoro-82M's block-coded
+# tensors hold 800-49,152 blocks, Parler's up to 1,028,096)
+NATIVE_BINS = (4096, 65536, 262144)
+
+
+def native_sweep(card: str) -> dict:
+    """Host ms of the library's Q8_0 dequant by block count and thread count
+    (the best of 5 calls, each into a new output array, as to_numpy's are),
+    beside the numpy codec's and the thread count `native._threads` picks
+    there: what core/native.py's VALUES_PER_THREAD is chosen from."""
+    import ctypes
+
+    from tts_tpu_torch.core import native, quant
+
+    lib = native.get_lib()
+    check(lib is not None, "core/native.py: the codec library did not build or load")
+    x = np.random.default_rng(0).standard_normal(max(NATIVE_SWEEP_BLOCKS) * 32)
+    raw = np.frombuffer(native.quant_q8_0(x.astype(np.float32)), np.uint8)
+    u8, f32 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)
+
+    def best_ms(fn, reps: int = 5) -> float:
+        return min(_host_s(fn)[1] for _ in range(reps)) * 1e3
+
+    def call(n: int, threads: int):
+        out = np.empty(n, np.float32)
+        lib.ggufc_dequant_q8_0(raw.ctypes.data_as(u8), out.ctypes.data_as(f32), n, threads)
+
+    print(f"[{card}] native Q8_0 dequant sweep, host ms (best of 5), CPUs "
+          f"{len(os.sched_getaffinity(0))} of os.cpu_count() {os.cpu_count()}; threads "
+          f"{' / '.join(map(str, NATIVE_SWEEP_THREADS))} | numpy | threads picked, ms:")
+    sweep = {}
+    for blocks in NATIVE_SWEEP_BLOCKS:
+        n = blocks * 32
+        row = {th: best_ms(lambda: call(n, th)) for th in NATIVE_SWEEP_THREADS}
+        numpy_ms = best_ms(lambda: quant.dequantize_q8_0(raw[: blocks * 34], n), 3)
+        picked, picked_ms = native._threads(n), best_ms(lambda: native.dequant_q8_0(raw, n))
+        print(f"  {blocks:>7} blocks: {' / '.join(f'{ms:.3f}' for ms in row.values())} | "
+              f"{numpy_ms:.3f} | {picked}, {picked_ms:.3f}")
+        sweep[blocks] = {"threads_ms": row, "numpy_ms": numpy_ms, "picked": picked,
+                         "picked_ms": picked_ms}
+    return sweep
+
+
+def _bin(blocks: int) -> str:
+    lo = 0
+    for hi in NATIVE_BINS:
+        if blocks < hi:
+            return f"{lo}-{hi - 1}"
+        lo = hi
+    return f">={lo}"
+
+
+def last_native(card: str, orpheus_paths: dict) -> dict:
+    """Phase 11 (a): core/native.py builds into build/ and loads; its
+    dequants and quant_q8_0 give the numpy codecs' bits on one full-width
+    Orpheus-3B Q8_0 and one Q4_0 tensor; the library's sweep by block and
+    thread count; to_numpy over every tensor of phase 9's Kokoro-82M Q8_0
+    and quantized Parler files with the library and with the numpy codecs
+    alone (host seconds, arrays bit-equal)."""
+    from tts_tpu_torch.core import native, quant
+    from tts_tpu_torch.core.gguf import GGUFFile
+
+    lib, secs = _host_s(native.get_lib)
+    check(lib is not None, "core/native.py: the codec library did not build or load")
+    built = sorted(f for f in os.listdir(native.BUILD_DIR) if f.startswith("libggufc_"))
+    print(f"[{card}] native codecs: {built} in build/, built and loaded in {secs:.2f} host s")
+    summary = {"build_host_s": secs}
+    name = "orpheus.layers.0.mlp.gate_proj"
+    for qtype, path in orpheus_paths.items():
+        with GGUFFile(path) as f:
+            t = f.tensors[name]
+            raw, n = t.raw(), t.n_elements
+            numpy_fn = quant.dequantize_q8_0 if qtype == "Q8_0" else quant.dequantize_q4_0
+            native_fn = native.dequant_q8_0 if qtype == "Q8_0" else native.dequant_q4_0
+            got, s_native = _host_s(lambda: native_fn(raw, n))
+            want, s_numpy = _host_s(lambda: numpy_fn(raw, n))
+        check(np.array_equal(got, want), f"native dequant {qtype}: not the numpy codec's bits")
+        line = (f"{name} {qtype} ({n:,} values): dequant native {s_native:.3f} s, numpy "
+                f"{s_numpy:.3f} s, bit-equal")
+        summary[f"dequant_{qtype}"] = {"native_s": s_native, "numpy_s": s_numpy}
+        if qtype == "Q8_0":
+            q_native, s_qn = _host_s(lambda: native.quant_q8_0(want))
+            q_numpy, s_qp = _host_s(lambda: quant.quantize_q8_0(want))
+            check(q_native == q_numpy, "native quant_q8_0: not the numpy codec's bytes")
+            line += f"; quant_q8_0 native {s_qn:.3f} s, numpy {s_qp:.3f} s, byte-equal"
+            summary["quant_Q8_0"] = {"native_s": s_qn, "numpy_s": s_qp}
+        print(f"[{card}] {line}")
+    summary["sweep"] = native_sweep(card)
+    for label, path in (("kokoro82m_q8", "kokoro82m_q8_seed0.gguf"),
+                        ("parler_q8", "parler_mini_v1_f32_to_q8.gguf"),
+                        ("parler_q4", "parler_mini_v1_f32_to_q4.gguf")):
+        path = os.path.join(MODEL_DIR, path)
+        check(os.path.exists(path), f"phase 11 needs phase 9's {os.path.basename(path)}")
+        summary[f"to_numpy_{label}"] = to_numpy_times(card, label, path)
+    return summary
+
+
+def to_numpy_times(card: str, label: str, path: str) -> dict:
+    """to_numpy over every tensor of `path`, with the library and with the
+    numpy codecs alone: host seconds in all and, for the block-coded
+    tensors, by block count (NATIVE_BINS); the arrays bit-equal."""
+    from tts_tpu_torch.core.gguf import GGMLType, GGUFFile
+
+    coded_types = (GGMLType.Q4_0, GGMLType.Q5_0, GGMLType.Q8_0, GGMLType.BF16)
+    secs = {"library": 0.0, "numpy": 0.0}
+    bins = {}
+    with GGUFFile(path) as f:
+        for j, t in enumerate(f.tensors.values()):
+            coded = t.ggml_type in coded_types
+            plain = (lambda: t.to_numpy_plain().reshape(t.shape)) if coded else t.to_numpy
+            # every other tensor takes the numpy codecs first: neither side
+            # always meets the file's pages cold
+            if j % 2:
+                want, s_np = _host_s(plain)
+                got, s_lib = _host_s(t.to_numpy)
+            else:
+                got, s_lib = _host_s(t.to_numpy)
+                want, s_np = _host_s(plain)
+            check(np.array_equal(got, want), f"{label} {t.name}: to_numpy with the "
+                  f"library differs from the numpy codecs")
+            secs["library"] += s_lib
+            secs["numpy"] += s_np
+            if coded:
+                b = bins.setdefault(_bin(-(-t.n_elements // 32)), [0, 0.0, 0.0])
+                b[0] += 1
+                b[1] += s_lib
+                b[2] += s_np
+        n = len(f.tensors)
+    n_coded = sum(b[0] for b in bins.values())
+    print(f"[{card}] to_numpy over {label} ({n} tensors, {n_coded} block-coded): "
+          f"{secs['library']:.3f} host s with the library, {secs['numpy']:.3f} with the "
+          f"numpy codecs alone ({secs['numpy'] / max(secs['library'], 1e-9):.2f}x), "
+          f"bit-equal; block-coded by blocks (tensors: library / numpy s): " + "; ".join(
+              f"{k} ({c}: {a:.4f} / {b:.4f})" for k, (c, a, b) in bins.items()))
+    return {**secs, "by_blocks": bins}
+
+
+def _parity_main(path: str, js: str, argv: list[str]) -> tuple[dict, str, float]:
+    """tts_tpu_torch.tools.parity_report.main([path, "--json", js, *argv])
+    in this process; returns (its report, its stdout, host seconds)."""
+    import contextlib
+
+    from tts_tpu_torch.tools import parity_report
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = parity_report.main([path, "--json", js, *argv])
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"parity_report {path} {argv}: exit {rc}")
+    with open(js) as f:
+        return json.load(f), buf.getvalue(), secs
+
+
+def last_parity(card: str, path: str, label: str, max_tokens: int, want,
+                float_ref: bool = False) -> tuple[dict, dict]:
+    """Phase 11 (b): `tts_tpu_torch.tools.parity_report.main` on `path`
+    (--device cuda by default): once saving its 16-bit WAV, once against a
+    WAV of that audio, which must give MATCH.  Each run's launches are held
+    to `want(report)` exactly, every counter set to 0 just before it.
+    `float_ref`: as the first run saves its 16-bit WAV, the same audio
+    array is also written as 32-bit float, and that file is the second
+    run's reference (the 16-bit file clips audio past +-1).  Returns (the
+    first run's launch counts, the second run's report)."""
+    from tts_tpu_torch.tools import parity_report
+    from tts_tpu_torch.utils.audio import read_wav, write_wav
+
+    wav = os.path.join(MODEL_DIR, f"parity_{label}.wav")
+    ref = os.path.join(MODEL_DIR, f"parity_{label}_f32.wav") if float_ref else wav
+    tail = ["--max-tokens", str(max_tokens)] if max_tokens else []
+
+    def save_both(out, audio, sample_rate, *a, **kw):
+        write_wav(out, audio, sample_rate, *a, **kw)
+        if out == wav:
+            write_wav(ref, audio, sample_rate, bit_depth=32)
+
+    counts = None
+    for i, extra in enumerate((["--save-wav", wav], ["--ref-wav", ref])):
+        js = os.path.join(MODEL_DIR, f"parity_{label}_{i}.json")
+        for kernel in launch_counters().values():
+            kernel.launches = 0
+        if i == 0 and float_ref:
+            parity_report.write_wav = save_both
+        try:
+            report, stdout, secs = _parity_main(path, js, [*extra, *tail])
+        finally:
+            parity_report.write_wav = write_wav
+        run = _kernel_counts()
+        print("  " + stdout.rstrip().replace("\n", "\n  "))
+        expected = want(report)
+        print(f"[{card}] parity_report {label} run {i + 1} ({secs:.1f} host s): launches {run}")
+        check(run == expected, f"parity_report {label}: launches {run}, not {expected}")
+        if i == 0 and float_ref:
+            check(os.path.exists(ref), f"parity_report {label}: no 32-bit copy of {wav}")
+            peak = report["audio"]["peak"]
+            saved, _ = read_wav(wav)
+            print(f"[{card}] parity_report {label}: the served audio peaks at {peak:.3e}, its "
+                  f"16-bit WAV at {np.abs(saved).max():.4f}{' (clipped)' if peak > 1 else ''};"
+                  f" the reference is the same audio array as 32-bit float")
+        counts = counts or run
+    vs = report["vs_reference"]
+    check(vs.get("verdict") == "MATCH", f"parity_report {label}: {vs}")
+    return counts, report
+
+
+def last_modules(card: str, orpheus_q8, orpheus_paths: dict) -> dict:
+    """Phase 11; returns the launch counts of each parity report's path."""
+    phase("11 the last modules: native codecs, parity_report, the Orpheus step breakdown")
+    import torch
+
+    from tts_tpu_torch.core.gguf import GGUFFile
+    from tts_tpu_torch.models import orpheus as tor
+    from tts_tpu_torch.models.kokoro import KokoroConfig
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+    from tts_tpu_torch.tools import orpheus_step_breakdown as sb
+
+    summary = {"card": card, "native": last_native(card, orpheus_paths)}
+    counts = {}
+    kokoro = os.path.join(MODEL_DIR, "kokoro82m_seed0.gguf")
+    with GGUFFile(kokoro) as f:
+        upsample = KokoroConfig.from_gguf_kv(f.kv).up_sampling_factor
+    zero = {k: 0 for k in launch_counters()}
+    counts["parity_kokoro"], report = last_parity(card, kokoro, "kokoro", 0, lambda r: zero,
+                                                  float_ref=True)
+    st, au = report["stages"], report["audio"]
+    check(st["total_frames"] * upsample == au["samples"] > 0,
+          f"parity Kokoro: {st['total_frames']} frames of durations, {au['samples']} samples "
+          f"served ({upsample} per frame)")
+    summary["parity_kokoro"] = {"verdict": report["vs_reference"]["verdict"],
+                                "corr": report["vs_reference"]["pcm_correlation"],
+                                "frames": st["total_frames"], "peak": au["peak"]}
+
+    # the sequential route, whose steps run the GEMV and flash_decode (a
+    # greedy request takes the speculative loop otherwise)
+    per = LAYERS * LINEARS_PER_LAYER
+    forwards, restore = _counting(tor, "_orpheus_body", lambda p, c, tokens, positions, cache,
+                                  start=0: "step" if tokens.shape[0] == 1
+                                  else "verify" if start else "prefill")
+
+    def orpheus_want(report):
+        steps = report["stages"]["n_tokens"] - 1
+        check(report["stages"]["n_tokens"] == PARITY_ORPHEUS_TOKENS
+              and forwards == {"prefill": 1, "step": steps},
+              f"parity Orpheus: {report['stages']['n_tokens']} tokens, forwards {dict(forwards)}")
+        forwards.clear()
+        return dict(zero, qgemv_int4=(per + 1) * steps + 1, qgemm_int4=per,
+                    flash_decode=LAYERS * steps)
+
+    os.environ["TTS_TPU_NO_SPEC"] = "1"
+    try:
+        counts["parity_orpheus_Q4_0"], report = last_parity(
+            card, orpheus_paths["Q4_0"], "orpheus_q4", PARITY_ORPHEUS_TOKENS, orpheus_want)
+    finally:
+        del os.environ["TTS_TPU_NO_SPEC"]
+        restore()
+    summary["parity_orpheus_Q4_0"] = {"verdict": report["vs_reference"]["verdict"],
+                                      "corr": report["vs_reference"]["pcm_correlation"],
+                                      "step0_argmax": report["stages"]["step0_logits"]["argmax"]}
+
+    q4 = runner_from_file(orpheus_paths["Q4_0"], device="cuda")
+    q4.generate("A request that makes the cache.", GenerationConfig(sample=False, max_tokens=8))
+    summary["breakdown"] = {}
+    for qtype, runner in (("Q8_0", orpheus_q8), ("Q4_0", q4)):
+        t0 = time.perf_counter()
+        results = sb.breakdown(runner.params, runner.cfg, runner._cache)
+        sb.print_breakdown(results, f"[{card}] Orpheus-3B {qtype}")
+        print(f"  ({time.perf_counter() - t0:.1f} host s)")
+        summary["breakdown"][qtype] = results
+    del q4
+    torch.cuda.empty_cache()
+    print(json.dumps({"last_modules": summary}))
+    return counts
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2620,6 +2925,7 @@ def main() -> int:
     counts.update(dia())
     counts.update(apps(card, paths["Q4_0"]))
     counts.update(parallel(card, orpheus_q8, paths["Q4_0"]))
+    counts.update(last_modules(card, orpheus_q8, paths))
     del orpheus_q8
     for r in results:
         path = next((q for q, ks in PATH_KERNELS.items() if r["name"] in ks), QTYPES[0])

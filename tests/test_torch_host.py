@@ -1,9 +1,9 @@
 """The port's own host-side modules against their JAX-package counterparts:
 the GGUF reader and writer (tts_tpu_torch.core), the unigram, BPE and
 single-pass tokenizers, Kokoro's phonemizer, espeak binding and GGUF
-builder, the Parler, T5 and DAC builders, the WAV and AIFF encoders, and
-the speech server (on test:dummy and on a tiny Kokoro), each given the same
-inputs."""
+builder, the Parler, T5, DAC and dense Orpheus builders, the WAV and AIFF
+encoders and the WAV reader, and the speech server (on test:dummy and on a
+tiny Kokoro), each given the same inputs."""
 
 import ctypes.util
 import json
@@ -21,6 +21,7 @@ from tts_tpu.apps import server as jserver  # noqa: E402
 from tts_tpu.convert import builder_codecs as jcodecs  # noqa: E402
 from tts_tpu.convert import builder_dia as jdia  # noqa: E402
 from tts_tpu.convert import builder_kokoro as jbuilder  # noqa: E402
+from tts_tpu.convert import builder_orpheus as jorpheus  # noqa: E402
 from tts_tpu.convert import builder_parler as jparler  # noqa: E402
 from tts_tpu.convert import builder_t5 as jt5  # noqa: E402
 from tts_tpu.core import gguf as jgguf  # noqa: E402
@@ -38,6 +39,7 @@ from tts_tpu_torch.convert import builder_dia as tdia  # noqa: E402
 from tts_tpu_torch.convert import builder_kokoro as tbuilder  # noqa: E402
 from tts_tpu_torch.convert import builder_parler as tparler  # noqa: E402
 from tts_tpu_torch.convert import builder_t5 as tt5  # noqa: E402
+from tts_tpu_torch.convert import builder_orpheus as torpheus  # noqa: E402
 from tts_tpu_torch.convert.builder_orpheus import orpheus_kv  # noqa: E402
 from tts_tpu_torch.core import gguf as tgguf  # noqa: E402
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError  # noqa: E402
@@ -153,6 +155,16 @@ def test_dia_builder_is_byte_identical(tmp_path, kwargs):
         assert a.read() == b.read()
 
 
+@pytest.mark.parametrize("kwargs", [{}, dict(n_layers=3, hidden=128, heads=4, kv_heads=4,
+                                              head_dim=32, ffn=256, vocab=1024)],
+                         ids=["default", "wide"])
+def test_orpheus_builder_is_byte_identical(tmp_path, kwargs):
+    want = jorpheus.write_orpheus_gguf(str(tmp_path / "jax.gguf"), seed=3, **kwargs)
+    got = torpheus.write_orpheus_gguf(str(tmp_path / "port.gguf"), seed=3, **kwargs)
+    with open(got, "rb") as a, open(want, "rb") as b:
+        assert a.read() == b.read()
+
+
 @pytest.mark.parametrize("kwargs", [{}, dict(out_size=32, n_layers=1)], ids=["default", "out32"])
 def test_t5_builder_is_byte_identical(tmp_path, kwargs):
     want = jt5.write_t5_gguf(tmp_path / "jax.gguf", seed=2, **kwargs)
@@ -190,6 +202,51 @@ def test_audio_encoders_give_jax_bytes(fmt):
     else:
         bits = int(fmt[3:])
         assert taudio.encode_wav(audio, sr, bits) == jaudio.encode_wav(audio, sr, bits)
+
+
+def test_write_aiff_gives_jax_bytes(tmp_path):
+    audio = np.random.default_rng(4).uniform(-1.2, 1.2, 3001).astype(np.float32)
+    taudio.write_aiff(str(tmp_path / "port.aiff"), audio, 44100)
+    jaudio.write_aiff(str(tmp_path / "jax.aiff"), audio, 44100)
+    assert (tmp_path / "port.aiff").read_bytes() == (tmp_path / "jax.aiff").read_bytes()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("bits", [16, 32])
+def test_read_wav_reads_either_package_wav(tmp_path, writer, bits):
+    """The port's read_wav gives JAX's read_wav's samples and rate for a
+    WAV written by either package, and a stereo WAV is averaged as JAX's."""
+    audio = np.random.default_rng(5).uniform(-1.2, 1.2, 2001).astype(np.float32)
+    path = str(tmp_path / "a.wav")
+    (jaudio if writer == "jax" else taudio).write_wav(path, audio, 22050, bits)
+    got, sr = taudio.read_wav(path)
+    want, want_sr = jaudio.read_wav(path)
+    assert sr == want_sr == 22050 and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    if bits == 16:      # clipped to [-1, 1] and rounded to 16 bits
+        np.testing.assert_allclose(got, np.clip(audio, -1, 1), atol=1 / 32767, rtol=0)
+    else:
+        np.testing.assert_array_equal(got, audio)
+
+
+def test_read_wav_averages_channels_and_rejects_other_files(tmp_path):
+    import wave
+
+    pcm = np.random.default_rng(6).integers(-30000, 30000, (500, 2)).astype("<i2")
+    path = str(tmp_path / "stereo.wav")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    got, sr = taudio.read_wav(path)
+    want, _ = jaudio.read_wav(path)
+    assert sr == 16000 and got.shape == (500,)
+    np.testing.assert_array_equal(got, want)
+    bad = tmp_path / "bad.wav"
+    bad.write_bytes(b"RIFX" + bytes(40))
+    with pytest.raises(ValueError, match="not a WAV"):
+        taudio.read_wav(str(bad))
 
 
 @pytest.fixture(scope="module")

@@ -32,13 +32,14 @@ from tts_tpu_torch.ops import basic as tbasic  # noqa: E402
 from tts_tpu_torch.ops import conv as tconv  # noqa: E402
 from tts_tpu_torch.ops import lstm as tlstm  # noqa: E402
 from tts_tpu_torch.ops import resample as tresample  # noqa: E402
-from tts_tpu_torch.ops import stft as tstft  # noqa: E402
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError  # noqa: E402
 
-# tts_tpu.ops re-exports functions under its modules' names (stft, ...)
+# tts_tpu.ops re-exports functions under its modules' names (stft, ...),
+# and so does tts_tpu_torch.ops
 jbasic, jconv, jlstm, jresample, jstft = (
     importlib.import_module(f"tts_tpu.ops.{m}")
     for m in ("basic", "conv", "lstm", "resample", "stft"))
+tstft = importlib.import_module("tts_tpu_torch.ops.stft")
 
 torch.set_num_threads(1)
 

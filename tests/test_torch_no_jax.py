@@ -9,7 +9,8 @@ on its speculative route; or write a tiny f32 Parler, quantize it to Q4_0
 with the port's quantize app and speak it to a WAV with the port's cli; or
 run the parallel layer: two Kokoro duration-trainer steps on a (1, 2)
 mesh, a Kokoro replica, and a tiny Q8_0 Orpheus tensor-parallel over two
-CPU entries."""
+CPU entries; or run the tools: the parity report on a tiny Kokoro against
+its own saved WAV, and a Q8_0 tensor through the native codecs."""
 
 import os
 import re
@@ -66,6 +67,30 @@ SCRIPT = textwrap.dedent("""
         r = runner_from_file(str(path), device="cpu")
         assert r.architecture == "kokoro" and r.list_voices() == ["af_heart"]
         resp = r.generate("hello world", GenerationConfig(voice="af_heart", seed=0))
+    elif qtype == "tools":
+        import contextlib, io
+        from tts_tpu_torch.convert.builder_kokoro import KokoroDims, write_kokoro_gguf
+        from tts_tpu_torch.core import native
+        from tts_tpu_torch.core.gguf import GGMLType, GGUFFile, GGUFWriter
+        from tts_tpu_torch.tools import parity_report
+        path = str(write_kokoro_gguf(sys.argv[1], KokoroDims.tiny(), seed=0,
+                                     duration_bias=-2.6))
+        argv = [path, "--text", "hello world", "--voice", "af_heart", "--device", "cpu"]
+        wav, js = sys.argv[1] + ".wav", sys.argv[1] + ".json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert parity_report.main(argv + ["--save-wav", wav]) == 0
+            assert parity_report.main(argv + ["--ref-wav", wav, "--json", js]) == 0
+        assert json.load(open(js))["vs_reference"]["verdict"] == "MATCH"
+        _, resp = parity_report.run_report(path, "hello world", "af_heart", 0, device="cpu")
+        w = GGUFWriter(sys.argv[1] + ".q8")
+        w.add_kv("general.architecture", "test")
+        x = np.random.default_rng(0).standard_normal((64, 64)).astype(np.float32)
+        w.add_tensor("x", x, GGMLType.Q8_0)
+        w.write()
+        with GGUFFile(sys.argv[1] + ".q8") as f:
+            t = f.tensors["x"]
+            assert np.array_equal(t.to_numpy(), t.to_numpy_plain().reshape(64, 64))
+        print("NATIVE", native.available())
     elif qtype.startswith("parler"):
         from tts_tpu_torch.convert.builder_parler import PARLER_MINI_V1, write_random_parler
         from tts_tpu_torch.convert.builder_t5 import write_t5_gguf
@@ -131,7 +156,7 @@ SCRIPT = textwrap.dedent("""
         from tts_tpu_torch.parallel.training import DurationTrainer
         kpath = write_kokoro_gguf(sys.argv[1] + ".k", KokoroDims.tiny(), seed=0)
         with GGUFFile(str(kpath)) as f:
-            model = KokoroModel.from_gguf(f)
+            model = KokoroModel.from_gguf(f, device="cpu")
         trainer = DurationTrainer(model.cfg, make_mesh(2, devices=["cpu"] * 2), 1e-2)
         params, opt = trainer.init(model.params)
         batch = (np.ones((2, 8), np.int64), np.ones((2, 8), np.float32),
@@ -176,7 +201,7 @@ SCRIPT = textwrap.dedent("""
 
 @pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0", "kokoro", "parler-Q8_0", "parler-Q4_0",
                                    "dia-Q8_0", "dia-Q4_0", "orpheus-stream-Q8_0", "apps",
-                                   "parallel"])
+                                   "parallel", "tools"])
 def test_port_runs_without_jax(tmp_path, qtype):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.path.join(ROOT, "tests"), os.environ.get("PYTHONPATH", "")]))
@@ -196,6 +221,6 @@ def test_port_runs_without_jax(tmp_path, qtype):
         audio = [line for line in lines if re.fullmatch(r"AUDIO \d+ True BLOCKED \[\]", line)]
         assert len(audio) == 1 and int(audio[0].split()[1]) % 512 == 0, lines
         return
-    n = {"kokoro": 13 * 3 * 600, "parler-Q8_0": 7 * 512, "parler-Q4_0": 7 * 512,
-         "apps": 7 * 512}.get(qtype, (15 // 7) * 4 * 512)
+    n = {"kokoro": 13 * 3 * 600, "tools": 13 * 3 * 600, "parler-Q8_0": 7 * 512,
+         "parler-Q4_0": 7 * 512, "apps": 7 * 512}.get(qtype, (15 // 7) * 4 * 512)
     assert f"AUDIO {n} True BLOCKED []" in lines, lines

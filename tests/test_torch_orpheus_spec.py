@@ -194,7 +194,7 @@ def test_decode_window_matches_full_decode():
     decode within 2e-5; an empty range is empty."""
     tensors, kv = build_snac_tensors(np.random.default_rng(2), embd=96,
                                      channels=(48, 24, 12, 6))
-    snac = tsnac.SNACDecoder.from_tensors(tensors, kv)
+    snac = tsnac.SNACDecoder.from_tensors(tensors, kv, device="cpu")
     rng = np.random.default_rng(5)
     t = 60
     heads = [rng.integers(0, 4096, t // rep) for rep in (4, 2, 1)]

@@ -24,7 +24,6 @@ from torch_tiny import orpheus_verify_logits_along  # noqa: E402
 from tts_tpu.apps.quantize import main as jax_quantize_main  # noqa: E402
 from tts_tpu.codecs import snac as jsnac  # noqa: E402
 from tts_tpu.convert.builder_kokoro import KokoroDims, build_kokoro_tensors  # noqa: E402
-from tts_tpu.convert.builder_orpheus import build_orpheus_tensors, write_orpheus_gguf  # noqa: E402
 from tts_tpu.models import kokoro as jk  # noqa: E402
 from tts_tpu.models import orpheus as jo  # noqa: E402
 from tts_tpu.models.registry import runner_from_file as jax_runner_from_file  # noqa: E402
@@ -34,6 +33,9 @@ from tts_tpu.runtime.api import GenerationConfig as JaxGenerationConfig  # noqa:
 from tts_tpu_torch.apps.server import ServerState, stop_workers  # noqa: E402
 from tts_tpu_torch.codecs import snac as tsnac  # noqa: E402
 from tts_tpu_torch.convert.builder_kokoro import write_kokoro_gguf  # noqa: E402
+from tts_tpu_torch.convert.builder_orpheus import (  # noqa: E402
+    build_orpheus_tensors, write_orpheus_gguf,
+)
 from tts_tpu_torch.models import kokoro as tk  # noqa: E402
 from tts_tpu_torch.models import orpheus as to  # noqa: E402
 from tts_tpu_torch.models.registry import runner_from_file  # noqa: E402

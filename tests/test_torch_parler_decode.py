@@ -208,7 +208,7 @@ def test_dac_matches_jax(frames):
     tensors, kv = jax_build_dac(np.random.default_rng(2))
     codes = np.random.default_rng(3).integers(0, 1024, (frames, 9)).astype(np.int32)
     jax_dac = jdac.DACDecoder.from_tensors(tensors, kv)
-    got = tdac.DACDecoder.from_tensors(tensors, kv).decode(codes)
+    got = tdac.DACDecoder.from_tensors(tensors, kv, device="cpu").decode(codes)
     assert got.shape == (frames * 512,)
     np.testing.assert_allclose(got, _jax_dac_exact(jax_dac, codes), atol=1e-5, rtol=0)
     keep = max(0, frames - tdac.DACDecoder.RECEPTIVE_FRAMES) * 512
@@ -221,7 +221,7 @@ def test_dac_window_matches_full_decode():
     """decode_window with RECEPTIVE_FRAMES of context, in chunks of 7
     frames, concatenates to the full decode within 2e-5."""
     tensors, kv = jax_build_dac(np.random.default_rng(2))
-    dac = tdac.DACDecoder.from_tensors(tensors, kv)
+    dac = tdac.DACDecoder.from_tensors(tensors, kv, device="cpu")
     codes = np.random.default_rng(4).integers(0, 1024, (60, 9)).astype(np.int32)
     pieces = [dac.decode_window(codes, s, s + 7) for s in range(0, 60, 7)]
     np.testing.assert_allclose(np.concatenate(pieces), dac.decode(codes), atol=2e-5, rtol=0)

@@ -148,18 +148,11 @@ def test_quantized_kokoro_loads_and_generates(sources, tmp_path):
 @pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
 def test_quantized_orpheus_loads_and_generates(tmp_path, qtype):
     """A tiny f32 Orpheus (kernel-eligible widths, the real vocabulary) by the
-    JAX builder, quantized by the port: every linear packs to the format's
-    kernel layout, and a request decodes."""
-    from tts_tpu.convert.builder_orpheus import build_orpheus_tensors
-    from tts_tpu_torch.core.gguf import GGUFWriter
+    port's builder, quantized by the port: every linear packs to the
+    format's kernel layout, and a request decodes."""
+    from tts_tpu_torch.convert.builder_orpheus import write_orpheus_gguf as write_port_orpheus
 
-    tensors, kv = build_orpheus_tensors(np.random.default_rng(0), **TINY)
-    w = GGUFWriter(tmp_path / "orpheus.gguf")
-    for k, v in kv.items():
-        w.add_kv(k, v)
-    for name, arr in tensors.items():
-        w.add_tensor(name, arr)
-    w.write()
+    write_port_orpheus(str(tmp_path / "orpheus.gguf"), seed=0, **TINY)
     out = str(tmp_path / "orpheus_q.gguf")
     stats = tq.quantize_gguf(str(tmp_path / "orpheus.gguf"), out,
                              tq.QuantizationParams(GGMLType[qtype], quantize_output_heads=True))

@@ -103,7 +103,7 @@ def test_snac_decode_matches_jax(tensors, t):
     audio in [-1, 1]."""
     tens, kv = tensors
     jdec = jsnac.SNACDecoder.from_tensors(tens, kv)
-    tdec = tsnac.SNACDecoder.from_tensors(tens, kv)
+    tdec = tsnac.SNACDecoder.from_tensors(tens, kv, device="cpu")
     heads = _heads(t, t)
     want = jdec.decode(heads, seed=5)
     got = tdec.decode(heads, seed=5, noise=_jax_noise(jdec.cfg, 5, t))

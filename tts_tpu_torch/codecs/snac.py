@@ -21,6 +21,7 @@ import torch
 from tts_tpu_torch.codecs.blocks import codec_layer, quantizer_decode
 from tts_tpu_torch.ops.basic import snake
 from tts_tpu_torch.ops.conv import conv1d
+from tts_tpu_torch.runtime.api import card_device
 
 
 @dataclass(frozen=True)
@@ -177,7 +178,9 @@ class SNACDecoder:
         self.device = torch.device(device)
 
     @classmethod
-    def from_tensors(cls, tensors: dict, kv: dict, device="cpu") -> "SNACDecoder":
+    def from_tensors(cls, tensors: dict, kv: dict, device=None) -> "SNACDecoder":
+        """Load onto `device`, the card when None (no card: TTSError)."""
+        device = card_device(device)
         cfg = SNACConfig.from_gguf_kv(kv)
         return cls(cfg, load_snac_params(tensors, cfg, device), device)
 

@@ -1,11 +1,13 @@
-"""Seeded random-weight Orpheus GGUFs with Q8_0 or Q4_0 linears at any width,
-up to the full Orpheus-3B, for running the port without a real checkpoint.
+"""Seeded random-weight Orpheus GGUFs (llama backbone + SNAC + BPE tokenizer).
 
-Counterpart of `tts_tpu/convert/builder_orpheus.py`, which draws float
-weights and lets the GGUF writer quantize them: at 3 B weights that takes
-minutes and 12 GB of host memory.  Here the quantized blocks are written
-directly in the GGML layout: random values with a random f16 `d` per block
-of 32.
+`build_orpheus_tensors` and `write_orpheus_gguf` are the port's own copies of
+`tts_tpu/convert/builder_orpheus.py`: the same arguments give a
+byte-identical dense (f32) file, at tiny dims for tests.  That builder draws
+float weights and lets the GGUF writer quantize them: at 3 B weights it
+would take minutes and 12 GB of host memory.  `write_random_orpheus` writes
+Q8_0 or Q4_0 linears at any width, up to the full Orpheus-3B, with the
+quantized blocks written directly in the GGML layout: random values with a
+random f16 `d` per block of 32.
 """
 
 from __future__ import annotations
@@ -37,6 +39,57 @@ def orpheus_kv(n_layers: int, hidden: int, heads: int, kv_heads: int, head_dim: 
             "orpheus.lenient_audio_codes": 1,
             "tokenizer.ggml.bos_token_id": 128000, "tokenizer.ggml.eos_token_id": 128009,
             "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.merges": ["Ġ a"]}
+
+
+def build_orpheus_tensors(rng: np.random.Generator, *, n_layers: int = 2,
+                          hidden: int = 64, heads: int = 4, kv_heads: int = 2,
+                          head_dim: int = 16, vocab: int = 156940,
+                          ffn: int = 128, scale: float = 0.05):
+    """-> (tensors: name -> f32 array, kv), drawn from `rng` in the JAX
+    builder's order (its unused `tiny_vocab` flag is left out).  The
+    embedding keeps the real vocabulary (prompt token ids index it) at tiny
+    widths."""
+    T: dict[str, np.ndarray] = {}
+
+    def t(name, *shape):
+        T[name] = (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    t("orpheus.embed_tokens", vocab, hidden)
+    t("orpheus.lm_head", vocab, hidden)
+    t("orpheus.norm", hidden)
+    T["orpheus.rope_frequencies"] = np.ones(head_dim // 2, np.float32)
+    for l in range(n_layers):
+        L = f"orpheus.layers.{l}"
+        t(f"{L}.input_layernorm", hidden)
+        t(f"{L}.post_attention_layernorm", hidden)
+        t(f"{L}.self_attn.q_proj", heads * head_dim, hidden)
+        t(f"{L}.self_attn.k_proj", kv_heads * head_dim, hidden)
+        t(f"{L}.self_attn.v_proj", kv_heads * head_dim, hidden)
+        t(f"{L}.self_attn.o_proj", hidden, heads * head_dim)
+        t(f"{L}.mlp.gate_proj", ffn, hidden)
+        t(f"{L}.mlp.up_proj", ffn, hidden)
+        t(f"{L}.mlp.down_proj", hidden, ffn)
+
+    snac_tensors, snac_kv = build_snac_tensors(rng)
+    T.update(snac_tensors)
+    # the JAX builder's key order (the file's bytes follow it): the model's
+    # keys, SNAC's, then the tokenizer's
+    kv = orpheus_kv(n_layers, hidden, heads, kv_heads, head_dim, vocab)
+    tokenizer = {k: kv.pop(k) for k in ("tokenizer.ggml.tokens", "tokenizer.ggml.merges")}
+    return T, {**kv, **snac_kv, **tokenizer}
+
+
+def write_orpheus_gguf(path, seed: int = 0, **kwargs):
+    """A dense random Orpheus (`build_orpheus_tensors(**kwargs)`) at `path`."""
+    rng = np.random.default_rng(seed)
+    tensors, kv = build_orpheus_tensors(rng, **kwargs)
+    w = GGUFWriter(path)
+    for k, v in kv.items():
+        w.add_kv(k, v)
+    for name, arr in tensors.items():
+        w.add_tensor(name, arr)
+    w.write()
+    return path
 
 
 def write_random_linear(w: GGUFWriter, rng: np.random.Generator, name: str, out_dim: int,

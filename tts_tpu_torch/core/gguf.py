@@ -3,8 +3,9 @@
 The port's own copy of `tts_tpu/core/gguf.py`: parse any GGUF (header, typed
 KV metadata, tensor table, quant blocks) into numpy arrays, and write GGUF
 byte for byte as the JAX package's writer does.  Reading uses mmap so
-weights stream lazily; quantized blocks decode with the numpy codecs of
-`core/quant.py` (the JAX package's optional C library is not carried over).
+weights stream lazily; Q4_0, Q5_0, Q8_0 and BF16 blocks decode with the
+threaded C++ codecs of `core/native.py` where they build, else with the
+numpy codecs of `core/quant.py`, which give the same bits.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any, BinaryIO
 
 import numpy as np
 
-from tts_tpu_torch.core import quant
+from tts_tpu_torch.core import native, quant
 
 GGUF_MAGIC = 0x46554747  # 'GGUF'
 GGUF_VERSION = 3
@@ -140,16 +141,28 @@ class GGUFTensor:
         return np.frombuffer(self._file.mm, dtype=np.uint8, count=self.nbytes, offset=start)
 
     def to_numpy(self, dtype=np.float32) -> np.ndarray:
-        """Materialize as a numpy array of `dtype` (dequantizing if needed)."""
+        """Materialize as a numpy array of `dtype` (dequantizing if needed),
+        with the native codecs (`core/native.py`) where they build."""
         t = GGMLType(self.ggml_type)
         if t in _NUMPY_DTYPES:
             arr = self.raw().view(_NUMPY_DTYPES[t])[: self.n_elements]
-        elif t == GGMLType.BF16:
-            u16 = self.raw().view(np.uint16)[: self.n_elements].astype(np.uint32) << 16
-            arr = u16.view(np.float32)
         else:
-            arr = _DEQUANT[t](self.raw(), self.n_elements)
+            native_fn = {GGMLType.Q4_0: native.dequant_q4_0, GGMLType.Q5_0: native.dequant_q5_0,
+                         GGMLType.Q8_0: native.dequant_q8_0,
+                         GGMLType.BF16: native.bf16_to_f32}.get(t)
+            arr = native_fn(self.raw(), self.n_elements) if native_fn else None
+            if arr is None:
+                arr = self.to_numpy_plain()
         return np.ascontiguousarray(arr.reshape(self.shape).astype(dtype, copy=False))
+
+    def to_numpy_plain(self) -> np.ndarray:
+        """The flat f32 values of a BF16 or quantized tensor by the numpy
+        codecs alone (what `to_numpy` falls back to without the library)."""
+        t = GGMLType(self.ggml_type)
+        if t == GGMLType.BF16:
+            u16 = self.raw().view(np.uint16)[: self.n_elements].astype(np.uint32) << 16
+            return u16.view(np.float32)
+        return _DEQUANT[t](self.raw(), self.n_elements)
 
     def to_int8_scales(self):
         """(int8 values [shape], f32 per-32-block scales) for quantized matmuls."""

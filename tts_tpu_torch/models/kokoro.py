@@ -53,6 +53,7 @@ from tts_tpu_torch.ops.lstm import bilstm, flatten_bilstm, pack_lstm_params
 from tts_tpu_torch.ops.resample import upsample_linear, upsample_nearest
 from tts_tpu_torch.ops.stft import hann_window, istft, stft
 from tts_tpu_torch.parallel.mesh import Shards
+from tts_tpu_torch.runtime.api import card_device
 
 
 @dataclass(frozen=True)
@@ -684,7 +685,9 @@ class KokoroModel:
         self.window = torch.from_numpy(hann_window(cfg.n_fft)).to(self.device)
 
     @classmethod
-    def from_gguf(cls, gguf_file, device="cpu") -> "KokoroModel":
+    def from_gguf(cls, gguf_file, device=None) -> "KokoroModel":
+        """Load onto `device`, the card when None (no card: TTSError)."""
+        device = card_device(device)
         cfg = KokoroConfig.from_gguf_kv(gguf_file.kv)
         tensors = {name: t.to_numpy() for name, t in gguf_file.tensors.items()}
         params = load_kokoro_params(tensors, gguf_file.kv, cfg, device)
@@ -708,6 +711,20 @@ class KokoroModel:
         row = pack[min(max(n_tokens - 3, 0), pack.shape[0] - 1)]
         half = self.cfg.style_half_size
         return row[:half], row[half:2 * half]
+
+    def predict_durations(self, token_ids: list[int], voice: str):
+        """The duration predictor on one chunk, with the voice row
+        `synthesize` uses -> (tokens int32 [T], mask f32 [T] of ones,
+        durations f32 [T], hidden [T, dur_hidden + style_half]): the JAX
+        model's tuple at the exact token count T, so no position is
+        padding."""
+        _, style_pros = self.voice_style(voice, len(token_ids))
+        tokens = np.asarray(token_ids, np.int32)
+        with torch.inference_mode():
+            durations, hidden = duration_forward(
+                self.params, self.cfg, torch.from_numpy(tokens).long().to(self.device),
+                style_pros)
+        return tokens, np.ones(len(tokens), np.float32), durations, hidden
 
     def source_noise(self, n_frames: int, seed: int) -> torch.Tensor:
         """The harmonic source's noise for an n_frames chunk: standard

@@ -13,7 +13,7 @@ from typing import Callable
 import torch
 
 from tts_tpu_torch.core.gguf import GGUFFile
-from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSRunner
+from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSRunner, card_device
 
 _LOADERS: dict[str, Callable] = {}
 _TEST_LOADERS: dict[str, Callable] = {}
@@ -48,9 +48,7 @@ def runner_from_file(path: str, config: GenerationConfig | None = None,
         if device is not None and torch.device(device) != mesh.lead:
             raise TTSError(f"device {device} is not the mesh's lead device {mesh.lead}")
         device = mesh.lead
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise TTSError("device 'cuda' requested but no CUDA device is available")
+    device = card_device(device)
     config = config or GenerationConfig()
     if path.startswith("test:"):
         name = path[len("test:"):]

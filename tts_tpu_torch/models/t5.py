@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
+from tts_tpu_torch.runtime.api import card_device
 from tts_tpu_torch.text.tokenizers import UnigramTokenizer
 
 
@@ -153,7 +154,9 @@ class T5Runner:
 
     @classmethod
     def from_gguf(cls, gguf_file, tokenizer: UnigramTokenizer | None = None,
-                  device="cpu") -> "T5Runner":
+                  device=None) -> "T5Runner":
+        """Load onto `device`, the card when None (no card: TTSError)."""
+        device = card_device(device)
         cfg = T5Config.from_gguf_kv(gguf_file.kv)
         tokenizer = tokenizer or UnigramTokenizer.from_gguf_kv(gguf_file.kv)
         return cls(cfg, load_t5_params(dict(gguf_file.tensors), cfg, device), tokenizer)

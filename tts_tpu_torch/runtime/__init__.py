@@ -1,0 +1,1 @@
+from tts_tpu_torch.runtime.api import GenerationConfig, TTSResponse, TTSRunner  # noqa: F401

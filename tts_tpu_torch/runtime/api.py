@@ -48,6 +48,17 @@ class TTSError(RuntimeError):
     """Recoverable user-facing error (bad voice, prompt too long, ...)."""
 
 
+def card_device(device=None):
+    """`device` as a torch.device, the card ("cuda") when None.  A CUDA
+    device with no card raises TTSError: nothing falls back to the CPU."""
+    import torch
+
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise TTSError(f"device '{device}' requested but no CUDA device is available")
+    return device
+
+
 class TTSRunner:
     """Abstract runner: text in, audio out.  Concrete runners (orpheus,
     dummy) implement `generate`."""

@@ -1,8 +1,8 @@
-"""WAV / AIFF encoders for float32 PCM (no third-party deps).
+"""WAV / AIFF encode/decode for float32 PCM (no third-party deps).
 
-The port's own copy of `encode_wav`, `write_wav` and `encode_aiff` from
-`tts_tpu/utils/audio.py`: the same bytes for the same audio (16-bit PCM by
-default, as the server sends it and the cli writes it)."""
+The port's own copy of `tts_tpu/utils/audio.py`: the same bytes for the same
+audio (16-bit PCM by default, as the server sends it and the cli writes it),
+and the same reading of a 16-bit PCM or 32-bit float WAV."""
 
 from __future__ import annotations
 
@@ -45,6 +45,39 @@ def write_wav(path: str, audio: np.ndarray, sample_rate: int, bit_depth: int = 1
         f.write(encode_wav(audio, sample_rate, bit_depth))
 
 
+def read_wav(path: str) -> tuple[np.ndarray, int]:
+    """RIFF/WAVE -> (float32 mono audio, sample_rate). PCM16/PCM32f only;
+    channels are averaged."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:4] != b"RIFF" or raw[8:12] != b"WAVE":
+        raise ValueError(f"{path}: not a WAV file")
+    pos = 12
+    fmt = None
+    data = None
+    while pos + 8 <= len(raw):
+        cid = raw[pos:pos + 4]
+        size = struct.unpack_from("<I", raw, pos + 4)[0]
+        body = raw[pos + 8:pos + 8 + size]
+        if cid == b"fmt ":
+            fmt = struct.unpack_from("<HHIIHH", body, 0)
+        elif cid == b"data":
+            data = body
+        pos += 8 + size + (size & 1)
+    if fmt is None or data is None:
+        raise ValueError(f"{path}: malformed WAV (no fmt or data chunk)")
+    audio_format, channels, sample_rate, _, _, bits = fmt
+    if audio_format == 1 and bits == 16:
+        x = np.frombuffer(data, "<i2").astype(np.float32) / 32767.0
+    elif audio_format == 3 and bits == 32:
+        x = np.frombuffer(data, "<f4").astype(np.float32)
+    else:
+        raise ValueError(f"unsupported WAV format {audio_format}/{bits}")
+    if channels > 1:
+        x = x.reshape(-1, channels).mean(axis=1)
+    return x, sample_rate
+
+
 def _f80(value: float) -> bytes:
     """80-bit IEEE 754 extended float (AIFF sample-rate field)."""
     if value == 0:
@@ -73,3 +106,8 @@ def encode_aiff(audio: np.ndarray, sample_rate: int) -> bytes:
     out.write(struct.pack(">I", len(ssnd)))
     out.write(ssnd)
     return out.getvalue()
+
+
+def write_aiff(path: str, audio: np.ndarray, sample_rate: int):
+    with open(path, "wb") as f:
+        f.write(encode_aiff(audio, sample_rate))
