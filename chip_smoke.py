@@ -6,7 +6,8 @@ Dia-1.6B models with Q8_0 and with Q4_0 linears, and from Kokoro-82M, that
 its command-line apps (quantize, cli, perf_battery, phonemize) run the same
 models, that its parallel layer (the duration trainer, Orpheus-3B over
 tp = 2, data-parallel replicas) runs on the card, and that its last modules
-(the native GGUF codecs, the parity report, the Orpheus step breakdown) do.
+(the native GGUF codecs, the parity report, the Orpheus step breakdown) do,
+and that its benchmark, bench_torch.py, runs.
 
     python3 chip_smoke.py
 
@@ -124,6 +125,10 @@ Phases (any failure exits non-zero, before the final line):
      it; tools.orpheus_step_breakdown on phase 5's Q8_0 runner and a Q4_0
      one at KV positions 320 and 3583 (body, head, sample, attn, linears from
      CUDA-graph replays, residue, graph step, eager step)
+ 12. bench_torch.py as its own process on phase 6's Kokoro-82M (no file
+     rewritten): its JSON line, printed here, must parse, with the kernel
+     smoke passed (qgemm_int8's CUDA kernel launched), complete, cold_buckets
+     0 and a positive RTF
 The line before the last is a JSON object of per-kernel results (each
 kernel's launches on its Orpheus path, and by path); the last is
 {"ok": true, "device": {...}}.  It imports only tts_tpu_torch, and fails if
@@ -980,71 +985,6 @@ def kokoro_tiny_cuda_vs_cpu():
     check(bool(np.isfinite(a["audio"]).all()), "tiny Kokoro: non-finite audio on cuda")
 
 
-def _kokoro_frames(model, chunks) -> list[int]:
-    """Each chunk's frame count as the duration predictor gives it, computed
-    apart from the request that synthesized it."""
-    import torch
-
-    from tts_tpu_torch.models import kokoro as tk
-
-    frames = []
-    with torch.inference_mode():
-        for tokens in chunks:
-            _, style = model.voice_style("af_heart", len(tokens))
-            dur, _ = tk.duration_forward(model.params, model.cfg,
-                                         torch.tensor(tokens, device=model.device), style)
-            frames.append(int(dur.sum().item()))
-    return frames
-
-
-def _profile_request(runner, text, cfg, name: str) -> dict:
-    """One warm request under torch.profiler: the time during which some
-    kernel ran on the device (kernel intervals merged), as a share of the
-    profiled wall and of the same request's wall unprofiled just before
-    (the median of three; the profiler's own cost lengthens the first), and
-    the ten kernels with the most device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    trace = os.path.join(MODEL_DIR, f"{name}_profile.json")
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        runner.generate(text, cfg)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    plain_ms = sorted(walls)[1]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        resp = runner.generate(text, cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    check(len(kernels) > 0, "torch.profiler recorded no device kernel")
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name: dict = {}
-    for e in kernels:
-        n, t = by_name.get(e["name"], (0, 0.0))
-        by_name[e["name"]] = (n + 1, t + float(e["dur"]))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    first = spans[0][0]
-    return {"request": text, "wall_ms": wall_ms, "unprofiled_wall_ms": plain_ms,
-            "audio_s": resp.duration_s, "device_kernels": len(kernels),
-            "device_busy_ms": busy / 1e3, "device_busy_share": busy / 1e3 / wall_ms,
-            "device_busy_share_of_unprofiled_wall": busy / 1e3 / plain_ms,
-            "first_to_last_kernel_ms": (end - first) / 1e3,
-            "top_kernels": [{"name": n[:120], "calls": c, "device_ms": t / 1e3}
-                            for n, (c, t) in top]}
-
-
 def _kokoro_config():
     from tts_tpu_torch.runtime.api import GenerationConfig
 
@@ -1055,12 +995,14 @@ def kokoro() -> dict:
     """Phase 6; returns the five kernels' launch counts over the Kokoro
     requests, every counter set to 0 just before them."""
     phase("6 Kokoro-82M")
+    import contextlib
     import dataclasses
 
     import torch
 
     from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
     from tts_tpu_torch.convert.builder_kokoro import KokoroDims, write_kokoro_gguf
+    from tts_tpu_torch.utils.trace import profile_request
 
     kokoro_tiny_cuda_vs_cpu()
     # the library's users run with torch's defaults; phases 3-4 turned TF32 off
@@ -1087,19 +1029,17 @@ def kokoro() -> dict:
           f"the {base_mib:.0f} MiB left by the earlier phases, compute_dtype "
           f"{model.cfg.compute_dtype}")
 
-    chunks, responses = [], []
-    synthesize, generate = model.synthesize, runner.generate
-
-    def recording_synthesize(token_ids, voice, seed=0, **kw):
-        chunks.append(list(token_ids))
-        return synthesize(token_ids, voice, seed=seed, **kw)
+    responses = []
+    generate = runner.generate
+    recording = contextlib.ExitStack()
+    chunks = recording.enter_context(model.recording_chunks())
 
     def recording_generate(text, config=None):
         resp = generate(text, config)
         responses.append(resp)
         return resp
 
-    model.synthesize, runner.generate = recording_synthesize, recording_generate
+    runner.generate = recording_generate
     srv = make_server(state, port=0)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     port = srv.server_address[1]
@@ -1118,7 +1058,7 @@ def kokoro() -> dict:
             n = wf.getnframes()
             check(wf.getframerate() == 24000, f"{label}: rate {wf.getframerate()}")
         resp = responses[-1]
-        frames = _kokoro_frames(model, chunks)
+        frames = model.chunk_frames(chunks, "af_heart")
         check(n > 0 and n == len(resp.audio), f"{label}: wav {n} samples, audio "
               f"{len(resp.audio)}")
         check(n == 600 * sum(frames), f"{label}: {n} samples for {sum(frames)} frames "
@@ -1178,7 +1118,7 @@ def kokoro() -> dict:
                 first = resp.read(2)
                 ttfa.append((time.perf_counter() - t) * 1e3)
                 n = (len(first) + len(resp.read())) // 2
-            frames = _kokoro_frames(model, chunks)
+            frames = model.chunk_frames(chunks, "af_heart")
             check(n == 600 * sum(frames), f"pcm stream: {n} samples for {frames} frames")
         summary["ttfa_http_ms"] = sorted(ttfa)[1]
         print(f"pcm stream through the server (generate_stream): time to its first bytes "
@@ -1186,7 +1126,8 @@ def kokoro() -> dict:
               f"{n / 24000:.3f} s of audio")
     finally:
         counts = {k: c.launches for k, c in counters.items()}
-        model.synthesize, runner.generate = synthesize, generate
+        runner.generate = generate
+        recording.close()
         srv.shutdown()
         srv.server_close()
         stop_workers(state)
@@ -1207,7 +1148,7 @@ def kokoro() -> dict:
 
     tokens = [0] + runner.tokenizer.tokenize(runner.phonemizer.text_to_phonemes(
         HARVARD[1]).replace(".", "").strip()) + [0]
-    dur = _kokoro_frames(model, [tokens])[0]
+    dur = model.chunk_frames([tokens], "af_heart")[0]
     noise = model.source_noise(dur, seed=0)
     audio = {}
     for dtype in ("bfloat16", "float32"):
@@ -1225,7 +1166,8 @@ def kokoro() -> dict:
     check(corr >= KOKORO_BF16_MIN_CORR, f"bf16 vs f32: correlation {corr} < "
           f"{KOKORO_BF16_MIN_CORR}")
 
-    prof = _profile_request(runner, HARVARD[0], _kokoro_config(), "kokoro")
+    prof = profile_request(runner, HARVARD[0], _kokoro_config(),
+                           os.path.join(MODEL_DIR, "kokoro_profile.json"))
     print(json.dumps({"kokoro_profile": prof}))
     summary["device_busy_share"] = prof["device_busy_share"]
     summary["device_busy_share_of_unprofiled_wall"] = prof["device_busy_share_of_unprofiled_wall"]
@@ -1400,6 +1342,7 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
 
     from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
     from tts_tpu_torch.runtime.api import GenerationConfig
+    from tts_tpu_torch.utils.trace import profile_request
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1531,9 +1474,9 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
     print(f"max_memory_allocated during the requests {summary['max_memory_allocated_mib']:.0f} "
           f"MiB over what was allocated before the load (weights, cache, T5 while encoding)")
     summary["bracket"] = parler_bracket(runner, PARLER_TEXTS[1])
-    prof = _profile_request(runner, PARLER_TEXTS[0],
-                            GenerationConfig(seed=1, top_k=50, max_tokens=PARLER_PROFILE_ROWS),
-                            f"parler_{qtype}")
+    prof = profile_request(runner, PARLER_TEXTS[0],
+                           GenerationConfig(seed=1, top_k=50, max_tokens=PARLER_PROFILE_ROWS),
+                           os.path.join(MODEL_DIR, f"parler_{qtype}_profile.json"))
     print(json.dumps({f"parler_{qtype}_profile": prof}))
     summary["profile"] = {k: prof[k] for k in ("wall_ms", "unprofiled_wall_ms", "device_busy_ms",
                                                "device_busy_share",
@@ -1701,6 +1644,7 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
     from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
     from tts_tpu_torch.models import dia as td
     from tts_tpu_torch.runtime.api import GenerationConfig
+    from tts_tpu_torch.utils.trace import profile_request
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1826,9 +1770,9 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
     print(f"max_memory_allocated during the requests {summary['max_memory_allocated_mib']:.0f} "
           f"MiB over what was allocated before the load (weights, caches, activations)")
     summary["bracket"] = dia_bracket(runner, DIA_TEXTS[1])
-    prof = _profile_request(runner, DIA_TEXTS[0],
-                            GenerationConfig(seed=1, top_k=50, max_tokens=DIA_PROFILE_TOKENS),
-                            f"dia_{qtype}")
+    prof = profile_request(runner, DIA_TEXTS[0],
+                           GenerationConfig(seed=1, top_k=50, max_tokens=DIA_PROFILE_TOKENS),
+                           os.path.join(MODEL_DIR, f"dia_{qtype}_profile.json"))
     print(json.dumps({f"dia_{qtype}_profile": prof}))
     summary["profile"] = {k: prof[k] for k in ("wall_ms", "unprofiled_wall_ms", "device_busy_ms",
                                                "device_busy_share",
@@ -2899,6 +2843,45 @@ def last_modules(card: str, orpheus_q8, orpheus_paths: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 12 ---
+# seconds, for bench_torch.py as its own process: above its DEADLINE_S, so
+# that it prints its line before this kill
+BENCH_TIMEOUT = 600
+
+
+def bench(card: str) -> dict:
+    """Phase 12: bench_torch.py as its own process on phase 6's Kokoro-82M
+    (BENCH_KOKORO_GGUF, so nothing is rewritten); its last line must parse,
+    with its kernel smoke passed (the CUDA qgemm_int8 launched once),
+    complete, cold_buckets 0 and value > 0.  Returns the line."""
+    phase("12 bench_torch.py: the Kokoro-82M Harvard battery as its own process")
+    import torch
+
+    path = os.path.join(MODEL_DIR, "kokoro82m_seed0.gguf")
+    check(os.path.exists(path), "phase 12 needs phase 6's Kokoro-82M")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT,
+                          env=dict(os.environ, BENCH_KOKORO_GGUF=path))
+    secs = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr[-4000:])
+    lines = proc.stdout.strip().splitlines()
+    check(bool(lines), f"bench_torch.py printed nothing (exit {proc.returncode})")
+    try:
+        line = json.loads(lines[-1])
+    except ValueError:
+        line = None
+    check(isinstance(line, dict), f"bench_torch.py: its last line is not JSON: {lines[-1]!r}")
+    print(json.dumps({"bench_torch": line}))
+    print(f"[{card}] bench_torch.py: exit {proc.returncode} in {secs:.1f} host s")
+    check(proc.returncode == 0 and line.get("kernel_smoke") == "passed"
+          and line.get("complete") is True and line.get("cold_buckets") == 0
+          and (line.get("value") or 0) > 0, f"bench_torch.py: exit {proc.returncode}, {line}")
+    return line
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2927,6 +2910,7 @@ def main() -> int:
     counts.update(parallel(card, orpheus_q8, paths["Q4_0"]))
     counts.update(last_modules(card, orpheus_q8, paths))
     del orpheus_q8
+    bench(card)
     for r in results:
         path = next((q for q, ks in PATH_KERNELS.items() if r["name"] in ks), QTYPES[0])
         r["launches"] = counts[path][r["name"]]

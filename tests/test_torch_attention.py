@@ -158,7 +158,7 @@ def test_kv_cache_owns_zeroed_arrival_counters(kv_quant):
     cfg = to.OrpheusConfig(n_layers=1, hidden_size=256, n_attn_heads=HQ,
                            n_kv_attn_heads=HKV, head_size=HS, kv_quant=kv_quant,
                            max_context_length=64, max_generation_size=448)
-    a, b = to.init_kv_cache(cfg), to.init_kv_cache(cfg)
+    a, b = to.init_kv_cache(cfg, "cpu"), to.init_kv_cache(cfg, "cpu")
     for cache in (a, b):
         assert cache["counters"].dtype == torch.int32
         assert cache["counters"].tolist() == [0] * HKV

@@ -107,7 +107,7 @@ def test_loader_matches_jax(tiny, qtype):
     and every tensor, packed or dense, equals the JAX loader's (its f16
     scales as their uint16 bits; the heads bf16 on quantized files)."""
     _, jparams, _, tparams = tiny(qtype)
-    jnp_params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    jnp_params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     names = ("sa_q", "sa_k", "sa_v", "sa_o", "ca_q", "ca_k", "ca_v", "ca_o", "gate", "up", "wo")
     key = {"dense": None, "Q8_0": "wq", "Q4_0": "wq4"}[qtype]
     for jl, tl in zip(jnp_params["decoder"]["layers"], tparams["decoder"]["layers"], strict=True):
@@ -201,7 +201,7 @@ def test_step_and_rows_logits_match_jax(tiny, qtype):
     want = np.concatenate([np.stack(want), np.asarray(m)])
     want0 = np.asarray(jd.dia_step0_logits(jparams, jcfg, jd.init_dia_cache(jcfg), jcross))
 
-    cache = td.init_dia_cache(tcfg)
+    cache = td.init_dia_cache(tcfg, "cpu")
     got0 = td.dia_step0_logits(tparams, tcfg, cache, cross).numpy()
     got = torch.cat([td._dia_rows(tparams, tcfg, torch.from_numpy(ins[i:i + 1]), i, cache, cross)
                      for i in range(4)]

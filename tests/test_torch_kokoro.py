@@ -183,7 +183,8 @@ def test_bilstm_matches_jax():
     x = rng.standard_normal((T, C)).astype(np.float32)
     jt = {k: jnp.asarray(v) for k, v in tens.items()}
     jf, jb = jlstm.pack_lstm_params(jt, "p.0"), jlstm.pack_lstm_params(jt, "p.0", reverse=True)
-    tf, tb = tlstm.pack_lstm_params(tens, "p.0"), tlstm.pack_lstm_params(tens, "p.0", reverse=True)
+    tf, tb = tlstm.pack_lstm_params(tens, "p.0", device="cpu"), tlstm.pack_lstm_params(
+        tens, "p.0", reverse=True, device="cpu")
     for j, t in ((jf, tf), (jb, tb)):
         np.testing.assert_array_equal(_np(t["w_ih"]), np.asarray(j["w_ih"]).T)
         np.testing.assert_array_equal(_np(t["w_hh"]), np.asarray(j["w_hh"]).T)
@@ -260,7 +261,7 @@ def test_loader_matches_params_from_jax(model):
     """The port's GGUF loader gives exactly the tensors params_from_jax
     makes of the JAX package's params."""
     jm, tm = model
-    want = tk.params_from_jax(jax.tree_util.tree_map(np.asarray, jm.params))
+    want = tk.params_from_jax(jax.tree_util.tree_map(np.asarray, jm.params), "cpu")
     flat_t, tree_t = jax.tree_util.tree_flatten(tm.params)
     flat_w, tree_w = jax.tree_util.tree_flatten(want)
     assert tree_t == tree_w

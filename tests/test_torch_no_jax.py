@@ -5,12 +5,13 @@ test:dummy through the port's server, then write a tiny Q8_0 or Q4_0
 Orpheus, a tiny Kokoro, a tiny Q8_0 or Q4_0 Parler and T5, or a tiny Q8_0
 or Q4_0 Dia, with the port's own builders, load it and synthesize on the
 CPU: greedy and sampled requests and a stream, for Orpheus a greedy stream
-on its speculative route; or write a tiny f32 Parler, quantize it to Q4_0
-with the port's quantize app and speak it to a WAV with the port's cli; or
-run the parallel layer: two Kokoro duration-trainer steps on a (1, 2)
-mesh, a Kokoro replica, and a tiny Q8_0 Orpheus tensor-parallel over two
-CPU entries; or run the tools: the parity report on a tiny Kokoro against
-its own saved WAV, and a Q8_0 tensor through the native codecs."""
+on its speculative route; or run bench_torch.py on a tiny Kokoro; or write
+a tiny f32 Parler, quantize it to Q4_0 with the port's quantize app and
+speak it to a WAV with the port's cli; or run the parallel layer: two
+Kokoro duration-trainer steps on a (1, 2) mesh, a Kokoro replica, and a
+tiny Q8_0 Orpheus tensor-parallel over two CPU entries; or run the tools:
+the parity report on a tiny Kokoro against its own saved WAV, and a Q8_0
+tensor through the native codecs."""
 
 import os
 import re
@@ -66,6 +67,19 @@ SCRIPT = textwrap.dedent("""
         path = write_kokoro_gguf(sys.argv[1], KokoroDims.tiny(), seed=0, duration_bias=-2.6)
         r = runner_from_file(str(path), device="cpu")
         assert r.architecture == "kokoro" and r.list_voices() == ["af_heart"]
+        resp = r.generate("hello world", GenerationConfig(voice="af_heart", seed=0))
+    elif qtype == "bench":
+        import contextlib, io, os
+        import bench_torch
+        from tts_tpu_torch.convert.builder_kokoro import KokoroDims, write_kokoro_gguf
+        path = write_kokoro_gguf(sys.argv[1], KokoroDims.tiny(), seed=0, duration_bias=-2.6)
+        os.environ["BENCH_KOKORO_GGUF"] = str(path)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert bench_torch.main(["--device", "cpu"]) == 0
+        line = json.loads(buf.getvalue().splitlines()[-1])
+        assert line["complete"] and line["error"] is None, line
+        r = runner_from_file(str(path), device="cpu")
         resp = r.generate("hello world", GenerationConfig(voice="af_heart", seed=0))
     elif qtype == "tools":
         import contextlib, io
@@ -201,7 +215,7 @@ SCRIPT = textwrap.dedent("""
 
 @pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0", "kokoro", "parler-Q8_0", "parler-Q4_0",
                                    "dia-Q8_0", "dia-Q4_0", "orpheus-stream-Q8_0", "apps",
-                                   "parallel", "tools"])
+                                   "parallel", "tools", "bench"])
 def test_port_runs_without_jax(tmp_path, qtype):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.path.join(ROOT, "tests"), os.environ.get("PYTHONPATH", "")]))
@@ -221,6 +235,7 @@ def test_port_runs_without_jax(tmp_path, qtype):
         audio = [line for line in lines if re.fullmatch(r"AUDIO \d+ True BLOCKED \[\]", line)]
         assert len(audio) == 1 and int(audio[0].split()[1]) % 512 == 0, lines
         return
-    n = {"kokoro": 13 * 3 * 600, "tools": 13 * 3 * 600, "parler-Q8_0": 7 * 512,
+    n = {"kokoro": 13 * 3 * 600, "tools": 13 * 3 * 600, "bench": 13 * 3 * 600,
+         "parler-Q8_0": 7 * 512,
          "parler-Q4_0": 7 * 512, "apps": 7 * 512}.get(qtype, (15 // 7) * 4 * 512)
     assert f"AUDIO {n} True BLOCKED []" in lines, lines

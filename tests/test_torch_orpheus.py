@@ -56,7 +56,7 @@ def _models(path):
     with GGUFFile(path) as f:
         tcfg = dataclasses.replace(to.OrpheusConfig.from_gguf_kv(f.kv),
                                    max_context_length=CTX, max_generation_size=GEN)
-        tparams = to.load_orpheus_params(dict(f.tensors), tcfg)
+        tparams = to.load_orpheus_params(dict(f.tensors), tcfg, "cpu")
     return jcfg, jparams, tcfg, tparams
 
 
@@ -121,7 +121,7 @@ def test_loader_matches_params_from_jax(tiny, qtype):
     scales from the uint16 bits, bf16 embedding, f32 norms; fused
     qkv/gateup, the lm_head padded to a multiple of 1024)."""
     _, jparams, _, tparams = tiny(qtype, "full")[1]
-    from_jax = to.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    from_jax = to.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     assert set(tparams["layers"][0]) == {"in_norm", "qkv", "o", "post_norm", "gateup", "down"}
     if qtype == "Q4_0":
         assert tparams["head"]["wq4"].shape == (128, 157696)
@@ -177,11 +177,11 @@ def test_greedy_decode_loop_matches_jax(tiny, qtype):
     assert len(want) == 41
     agree = _assert_greedy_equal(orpheus_logits_along(tparams, tcfg, PROMPT, want), want)
 
-    tcache = to.init_kv_cache(tcfg)
+    tcache = to.init_kv_cache(tcfg, "cpu")
     tl = to.orpheus_prefill(tparams, tcfg, torch.tensor(PROMPT), tcache)
     tfirst = torch.argmax(tl).to(torch.int32).reshape(1)
     rest, _ = to.orpheus_decode_loop(tparams, tcfg, tfirst, T, 40, tcache, None,
-                                     to.init_state(1), do_sample=False)
+                                     to.init_state(1, "cpu"), do_sample=False)
     got = [int(tfirst[0])] + rest
     assert len(got) == 41 and got[:agree] == want[:agree]
 
@@ -202,7 +202,7 @@ def test_decode_loop_stops_at_the_stop_token(monkeypatch, lookahead, limit):
     monkeypatch.setattr(to, "orpheus_decode_step", step)
     monkeypatch.setattr(to, "_LOOKAHEAD", lookahead)
     out, state = to.orpheus_decode_loop(None, cfg, torch.tensor([1], dtype=torch.int32), 10,
-                                        limit, None, None, to.init_state(1), do_sample=False)
+                                        limit, None, None, to.init_state(1, "cpu"), do_sample=False)
     assert out == script[:min(4, limit)]
     assert positions == list(range(10, 10 + min(4 + lookahead, limit)))
     assert state["last"].tolist() == [out[-1]]
@@ -223,7 +223,7 @@ def test_loader_packs_q4_0_to_int4(tmp_path):
                            n_kv_attn_heads=kv_heads, head_size=hd, vocab_size=vocab)
     timings = {}
     with GGUFFile(path) as f:
-        p = to.load_orpheus_params(dict(f.tensors), cfg, timings=timings)
+        p = to.load_orpheus_params(dict(f.tensors), cfg, "cpu", timings=timings)
     assert set(timings) == {"pack_s", "upload_s"} and min(timings.values()) > 0
     layer = p["layers"][0]
     shapes = {"qkv": (hidden // 2, (heads + 2 * kv_heads) * hd), "o": (heads * hd // 2, hidden),
@@ -242,7 +242,7 @@ def test_loader_packs_q4_0_to_int4(tmp_path):
         jcfg = jo.OrpheusConfig(n_layers=1, hidden_size=hidden, n_attn_heads=heads,
                                 n_kv_attn_heads=kv_heads, head_size=hd, vocab_size=vocab)
         from_jax = to.params_from_jax(jax.tree_util.tree_map(
-            np.asarray, jo.load_orpheus_params(dict(f.tensors), jcfg)))
+            np.asarray, jo.load_orpheus_params(dict(f.tensors), jcfg)), "cpu")
     for x, y in zip(_flatten(p, []), _flatten(from_jax, []), strict=True):
         assert x.dtype == y.dtype and x.shape == y.shape
         torch.testing.assert_close(x, y, rtol=0, atol=0)

@@ -56,7 +56,7 @@ def tiny(tmp_path_factory):
 
 def _prefilled(r):
     """(cache, first greedy token) after PROMPT's prefill."""
-    cache = to.init_kv_cache(r.cfg)
+    cache = to.init_kv_cache(r.cfg, "cpu")
     logits = to.orpheus_prefill(r.params, r.cfg, torch.tensor(PROMPT), cache)
     return cache, int(logits.argmax())
 
@@ -100,7 +100,7 @@ def test_spec_loop_matches_sequential_loop(tiny, qtype, force_miss):
     r = tiny(qtype)
     cache, first = _prefilled(r)
     seq, _ = to.orpheus_decode_loop(r.params, r.cfg, torch.tensor([first], dtype=torch.int32),
-                                    len(PROMPT), 48, cache, None, to.init_state(1),
+                                    len(PROMPT), 48, cache, None, to.init_state(1, "cpu"),
                                     do_sample=False)
     cache, _ = _prefilled(r)
     spec = to.orpheus_decode_loop_spec(r.params, r.cfg, first, len(PROMPT), 48, cache,

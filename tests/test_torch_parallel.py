@@ -91,7 +91,7 @@ def kokoro():
     jcfg = dataclasses.replace(jk.KokoroConfig.from_gguf_kv(kv), style_half_size=dims.style // 2)
     tcfg = dataclasses.replace(tk.KokoroConfig.from_gguf_kv(kv), style_half_size=dims.style // 2)
     return (dims, jcfg, jk.load_kokoro_params(tensors, kv, jcfg), tcfg,
-            tk.load_kokoro_params(tensors, kv, tcfg))
+            tk.load_kokoro_params(tensors, kv, tcfg, "cpu"))
 
 
 def _batch(dims, B=8, T=64):
@@ -278,8 +278,8 @@ def test_orpheus_tensor_parallel_forward():
                                  jcache)
     cfg = dataclasses.replace(to.OrpheusConfig.from_gguf_kv(kv), vocab_size=1024,
                               max_context_length=64, max_generation_size=32)
-    params = to.load_orpheus_params(tensors, cfg)
-    base = to.orpheus_prefill(params, cfg, torch.from_numpy(tokens), to.init_kv_cache(cfg))
+    params = to.load_orpheus_params(tensors, cfg, "cpu")
+    base = to.orpheus_prefill(params, cfg, torch.from_numpy(tokens), to.init_kv_cache(cfg, "cpu"))
     sparams, cache, scfg = to.make_tp_context(params, cfg, make_mesh(8, devices=CPU8))
     assert scfg.tp == 2 and isinstance(cache, Shards)
     assert isinstance(sparams["layers"][0]["q"], Shards)

@@ -210,7 +210,7 @@ def test_generate_matches_jax(tiny, qtype, monkeypatch):
     # argmax (parler_step0_logits) JAX's up to near-ties
     for k in ("prompt_ids", "n_prompt_tokens", "n_steps"):
         assert tr.last_trace[k] == jr.last_trace[k], k
-    cache = tp.init_kv_cache(tcfg)
+    cache = tp.init_kv_cache(tcfg, "cpu")
     tp.parler_prefill(tparams, tcfg, torch.tensor(ids), cache, tr.cross_kv)
     step0 = tp.parler_step0_logits(tparams, tcfg, len(ids), cache, tr.cross_kv)
     assert tr.last_trace["step0_logits"]["per_head_argmax"] == step0.argmax(-1).tolist()
@@ -288,5 +288,5 @@ def test_t5_encoder_matches_jax(t5_path):
     assert got.shape == want.shape and got.shape[1] == 64
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     for n in (1, 9, 40, 300):
-        np.testing.assert_array_equal(tt5.relative_position_buckets(n).numpy(),
+        np.testing.assert_array_equal(tt5.relative_position_buckets(n, device="cpu").numpy(),
                                       np.asarray(jt5.relative_position_buckets(n)))

@@ -91,11 +91,11 @@ def test_greedy_decode_loop_matches_jax(tiny, qtype):
     assert want.shape == (40, 9)
     part, _ = first_part(port_logits_along(tcfg, tparams, ids, staircase_inputs(tcfg, want)),
                           want)
-    cache = tp.init_kv_cache(tcfg)
+    cache = tp.init_kv_cache(tcfg, "cpu")
     cross = tp.precompute_cross_kv(tparams, tcfg)
     tp.parler_prefill(tparams, tcfg, torch.tensor(ids), cache, cross)
     got, _, state = tp.parler_decode_loop(tparams, tcfg, len(ids), 40, cache, cross, None,
-                                          tp.init_state(9), tp.init_loop_state(tcfg),
+                                          tp.init_state(9, "cpu"), tp.init_loop_state(tcfg),
                                           do_sample=False)
     assert got.shape == (40, 9) and state[2] == 40
     np.testing.assert_array_equal(got[:part], want[:part])
@@ -146,13 +146,13 @@ def test_spec_loop_matches_sequential_loop(tiny, qtype, force_miss):
     cross = tp.precompute_cross_kv(tparams, tcfg)
 
     def prefilled():
-        cache = tp.init_kv_cache(tcfg)
+        cache = tp.init_kv_cache(tcfg, "cpu")
         tp.parler_prefill(tparams, tcfg, torch.tensor(ids), cache, cross)
         return cache
 
     seq, _, seq_state = tp.parler_decode_loop(tparams, tcfg, len(ids), 48, prefilled(), cross,
-                                              None, tp.init_state(9), tp.init_loop_state(tcfg),
-                                              do_sample=False)
+                                              None, tp.init_state(9, "cpu"),
+                                              tp.init_loop_state(tcfg), do_sample=False)
     out = np.full((tcfg.max_generation_size + 8, 9), tcfg.eos_token_id, np.int32)
     out, state, pos = tp.parler_decode_loop_spec_resume(
         tparams, tcfg, len(ids), 48, prefilled(), cross, tp.init_loop_state(tcfg), out,

@@ -123,7 +123,7 @@ def test_pack_q4_weight_matches_jax(tmp_path, rng, in_dim, pad_n):
     w.write()
     with _tensor(tmp_path / "w.gguf", "w") as (jt, t):
         want = jq.pack_q4_weight(jt, pad_n=pad_n, tile_n=256)
-        got = tq.pack_q4_weight(t, pad_n=pad_n, tile_n=256)
+        got = tq.pack_q4_weight(t, pad_n=pad_n, tile_n=256, device="cpu")
     assert got["wq4"].dtype == torch.int8 and got["scales"].dtype == torch.float16
     assert tuple(got["wq4"].shape) == (in_dim // 2, 512 if pad_n else 300)
     np.testing.assert_array_equal(got["wq4"].numpy(), np.asarray(want["wq4"]))

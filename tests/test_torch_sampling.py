@@ -60,8 +60,8 @@ def test_sampled_draws_follow_filtered_probs():
     top-k 4) land within 0.015 of each probability and never outside the
     support; the same seed gives the same draws."""
     logits = torch.tensor([[2.0, 1.0, 0.5, 0.0, -1.0, -3.0]]).repeat(40000, 1)
-    state = ts.init_state(40000)
-    probs = ts.filtered_probs(logits[:1], ts.init_state(1), top_k=4, use_top_p=False)[0]
+    state = ts.init_state(40000, "cpu")
+    probs = ts.filtered_probs(logits[:1], ts.init_state(1, "cpu"), top_k=4, use_top_p=False)[0]
     draw = lambda seed: ts.sample_tokens(torch.Generator().manual_seed(seed), logits, state,
                                          top_k=4, use_top_p=False)[0]
     tokens = draw(0)

@@ -77,8 +77,8 @@ def test_snac_loader_matches_params_from_jax(tensors):
     tens, kv = tensors
     cfg = jsnac.SNACConfig.from_gguf_kv(kv)
     from_jax = tsnac.params_from_jax(
-        jax.tree_util.tree_map(np.asarray, jsnac.load_snac_params(tens, cfg)))
-    own = tsnac.load_snac_params(tens, tsnac.SNACConfig.from_gguf_kv(kv))
+        jax.tree_util.tree_map(np.asarray, jsnac.load_snac_params(tens, cfg)), "cpu")
+    own = tsnac.load_snac_params(tens, tsnac.SNACConfig.from_gguf_kv(kv), "cpu")
     flat_a, flat_b = [], []
     for tree, flat in ((from_jax, flat_a), (own, flat_b)):
         stack = [tree]
@@ -114,8 +114,8 @@ def test_snac_decode_matches_jax(tensors, t):
 def test_position_noise_is_window_invariant():
     """The value at absolute position p depends only on (seed, layer, p), and
     the values are standard normal."""
-    full = tsnac.position_noise(7, 2, 0, 100_000)
-    torch.testing.assert_close(tsnac.position_noise(7, 2, 4096, 1000), full[4096:5096],
+    full = tsnac.position_noise(7, 2, 0, 100_000, "cpu")
+    torch.testing.assert_close(tsnac.position_noise(7, 2, 4096, 1000, "cpu"), full[4096:5096],
                                rtol=0, atol=0)
-    assert not torch.equal(tsnac.position_noise(7, 3, 0, 1000), full[:1000])
+    assert not torch.equal(tsnac.position_noise(7, 3, 0, 1000, "cpu"), full[:1000])
     assert abs(full.mean().item()) < 0.02 and abs(full.std().item() - 1) < 0.02

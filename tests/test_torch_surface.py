@@ -146,3 +146,49 @@ def test_constructors_default_to_the_card(tmp_path, monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(TTSError, match="no CUDA device"):
         make(tmp_path)
+
+
+def _public_functions():
+    """(qualified name, function) of every public function of the port's
+    modules and every public method (and constructor) of their classes."""
+    import inspect
+    import pkgutil
+
+    for info in pkgutil.walk_packages(tts_tpu_torch.__path__, "tts_tpu_torch."):
+        module = importlib.import_module(info.name)
+        for name, obj in vars(module).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != module.__name__:
+                continue
+            if inspect.isfunction(obj):
+                yield f"{module.__name__}.{name}", obj
+            elif inspect.isclass(obj):
+                for attr, member in vars(obj).items():
+                    if attr.startswith("_") and attr != "__init__":
+                        continue
+                    fn = getattr(member, "__func__", member)
+                    if inspect.isfunction(fn):
+                        yield f"{module.__name__}.{name}.{attr}", fn
+
+
+def test_no_public_function_defaults_device_to_the_cpu():
+    """A caller that gives no device runs on the card: no public function
+    or method of the port has a `device` parameter whose default is the
+    CPU (they take None, which `runtime.api.card_device` makes cuda)."""
+    import inspect
+
+    with_device, cpu = [], []
+    for name, fn in _public_functions():
+        param = inspect.signature(fn).parameters.get("device")
+        if param is None:
+            continue
+        with_device.append(name)
+        if str(param.default).split(":")[0] == "cpu":
+            cpu.append(name)
+    assert not cpu, f"device defaults to the CPU in {cpu}"
+    # the walk reaches the loaders, caches and constructors that take a device
+    for name in ("tts_tpu_torch.ops.sampling.init_state",
+                 "tts_tpu_torch.models.kokoro.KokoroModel.__init__",
+                 "tts_tpu_torch.models.kokoro.KokoroModel.from_gguf",
+                 "tts_tpu_torch.models.orpheus.init_kv_cache",
+                 "tts_tpu_torch.models.registry.runner_from_file"):
+        assert name in with_device, name

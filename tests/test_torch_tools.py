@@ -181,7 +181,7 @@ def test_step_parts_compose_to_the_decode_step(tiny_orpheus):
     attention and linears parts make one flash_decode per layer and the
     step's 4 GEMVs per layer plus the head's; sample draws a token."""
     r = tiny_orpheus
-    cache = to.init_kv_cache(r.cfg)
+    cache = to.init_kv_cache(r.cfg, "cpu")
     pos = 40
     parts = sb.step_parts(r.params, r.cfg, cache, pos, torch.Generator().manual_seed(0))
     assert list(parts) == list(sb.PARTS)
@@ -202,7 +202,7 @@ def test_step_parts_compose_to_the_decode_step(tiny_orpheus):
 def test_step_breakdown_needs_a_card(tiny_orpheus, monkeypatch):
     r = tiny_orpheus
     with pytest.raises(TTSError, match="CUDA graphs"):
-        sb.breakdown(r.params, r.cfg, to.init_kv_cache(r.cfg))
+        sb.breakdown(r.params, r.cfg, to.init_kv_cache(r.cfg, "cpu"))
     with pytest.raises(TTSError, match="not a card"):
         sb.main(["--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

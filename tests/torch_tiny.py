@@ -26,7 +26,7 @@ def orpheus_logits_along(params, cfg, prompt, stream):
 
     from tts_tpu_torch.models import orpheus as to
 
-    cache = to.init_kv_cache(cfg)
+    cache = to.init_kv_cache(cfg, "cpu")
     rows = [to.orpheus_prefill(params, cfg, torch.tensor(prompt), cache)]
     for i, tok in enumerate(stream[:-1]):
         rows.append(to.orpheus_decode_step(params, cfg, torch.tensor([tok]),
@@ -45,7 +45,7 @@ def orpheus_verify_logits_along(params, cfg, prompt, stream, width: int = 8):
 
     from tts_tpu_torch.models import orpheus as to
 
-    cache = to.init_kv_cache(cfg)
+    cache = to.init_kv_cache(cfg, "cpu")
     rows = [to.orpheus_prefill(params, cfg, torch.tensor(prompt), cache)[None]]
     T = len(prompt)
     for i in range(0, len(stream) - 1, width):
@@ -128,7 +128,7 @@ def parler_models(path):
             jcfg = dataclasses.replace(jcfg, kv_dtype="bfloat16")
     with GGUFFile(path) as f:
         tcfg = tp.ParlerConfig.from_gguf_kv(f.kv)
-        tparams = tp.load_parler_params(dict(f.tensors), tcfg)
+        tparams = tp.load_parler_params(dict(f.tensors), tcfg, "cpu")
         if tp.parler_params_quantized(tparams):
             tcfg = dataclasses.replace(tcfg, kv_dtype="bfloat16")
     return jcfg, jparams, tcfg, tparams
@@ -166,7 +166,7 @@ def port_logits_along(cfg, params, ids, ins, width: int = 1):
 
     from tts_tpu_torch.models import parler as tp
 
-    cache = tp.init_kv_cache(cfg)
+    cache = tp.init_kv_cache(cfg, "cpu")
     cross = tp.precompute_cross_kv(params, cfg)
     tp.parler_prefill(params, cfg, torch.tensor(ids), cache, cross)
     return torch.cat([tp._rows_logits(params, cfg, torch.from_numpy(ins[i:i + width]),
@@ -242,7 +242,7 @@ def dia_models(path):
             jcfg = dataclasses.replace(jcfg, kv_dtype="bfloat16")
     with GGUFFile(path) as f:
         tcfg = td.DiaConfig.from_gguf_kv(f.kv)
-        tparams = td.load_dia_params(dict(f.tensors), tcfg)
+        tparams = td.load_dia_params(dict(f.tensors), tcfg, "cpu")
         if td.dia_params_quantized(tparams):
             tcfg = dataclasses.replace(tcfg, kv_dtype="bfloat16")
     return jcfg, jparams, tcfg, tparams

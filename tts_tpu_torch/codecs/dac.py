@@ -19,9 +19,9 @@ import numpy as np
 import torch
 
 from tts_tpu_torch.codecs.blocks import codec_layer, quantizer_decode
+from tts_tpu_torch.core.device import card_device
 from tts_tpu_torch.ops.basic import snake
 from tts_tpu_torch.ops.conv import conv1d
-from tts_tpu_torch.runtime.api import card_device
 
 
 @dataclass(frozen=True)
@@ -47,10 +47,12 @@ class DACConfig:
         )
 
 
-def load_dac_params(tensors: dict, cfg: DACConfig, device="cpu",
+def load_dac_params(tensors: dict, cfg: DACConfig, device=None,
                     prefix: str = "audio_encoder.") -> dict:
     """tensors: name -> numpy array or GGUFTensor; returns f32 tensors on
     `device` in the JAX loader's tree."""
+    device = card_device(device)
+
     def get(name):
         t = tensors.get(prefix + name)
         if t is None:
@@ -105,10 +107,10 @@ class DACDecoder:
     # 16 gives margin (tests hold a windowed decode to the full one)
     RECEPTIVE_FRAMES = 16
 
-    def __init__(self, cfg: DACConfig, params: dict, device="cpu"):
+    def __init__(self, cfg: DACConfig, params: dict, device=None):
         self.cfg = cfg
         self.params = params
-        self.device = torch.device(device)
+        self.device = card_device(device)
 
     @classmethod
     def from_tensors(cls, tensors: dict, kv: dict, device=None) -> "DACDecoder":

@@ -19,9 +19,9 @@ import numpy as np
 import torch
 
 from tts_tpu_torch.codecs.blocks import codec_layer, quantizer_decode
+from tts_tpu_torch.core.device import card_device
 from tts_tpu_torch.ops.basic import snake
 from tts_tpu_torch.ops.conv import conv1d
-from tts_tpu_torch.runtime.api import card_device
 
 
 @dataclass(frozen=True)
@@ -49,8 +49,10 @@ class SNACConfig:
         )
 
 
-def load_snac_params(tensors: dict, cfg: SNACConfig, device="cpu", prefix: str = "snac.") -> dict:
+def load_snac_params(tensors: dict, cfg: SNACConfig, device=None, prefix: str = "snac.") -> dict:
     """tensors: name -> numpy array or GGUFTensor; returns f32 tensors."""
+    device = card_device(device)
+
     def get(name, optional=False):
         t = tensors.get(prefix + name)
         if t is None:
@@ -99,11 +101,12 @@ def _to_torch(arr, device):
     return torch.from_numpy(arr.copy()).to(device)
 
 
-def params_from_jax(np_params, device="cpu"):
+def params_from_jax(np_params, device=None):
     """A params tree from one of the JAX package's loaders (SNAC here, the
     Orpheus backbone in models/orpheus.py), as numpy arrays -> the same tree
     of torch tensors: uint16 scale bits become float16, every other array
     keeps its values and dtype (bfloat16 included)."""
+    device = card_device(device)
     if isinstance(np_params, dict):
         return {k: params_from_jax(v, device) for k, v in np_params.items()}
     if isinstance(np_params, list):
@@ -125,9 +128,10 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def position_noise(seed: int, layer: int, start: int, length: int, device="cpu") -> torch.Tensor:
+def position_noise(seed: int, layer: int, start: int, length: int, device=None) -> torch.Tensor:
     """[length, 1] standard normals; the value at absolute sample position p
     depends only on (seed, layer, p).  Box-Muller over two hashed uniforms."""
+    device = card_device(device)
     idx = start + torch.arange(length, dtype=torch.int64, device=device)
     key = _mix32((seed & _M32) ^ ((layer * 0x9E3779B9) & _M32))
     h1 = _mix32(idx ^ key)
@@ -172,10 +176,10 @@ class SNACDecoder:
     # sub-frame); 16 gives margin (tests hold a windowed decode to the full one)
     RECEPTIVE_FRAMES = 16
 
-    def __init__(self, cfg: SNACConfig, params: dict, device="cpu"):
+    def __init__(self, cfg: SNACConfig, params: dict, device=None):
         self.cfg = cfg
         self.params = params
-        self.device = torch.device(device)
+        self.device = card_device(device)
 
     @classmethod
     def from_tensors(cls, tensors: dict, kv: dict, device=None) -> "SNACDecoder":

@@ -59,7 +59,8 @@ from tts_tpu_torch.models.registry import register_loader
 from tts_tpu_torch.ops.qmatmul import apply_linear, load_linear
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_draft_rows, spec_enabled
-from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSResponse, TTSRunner
+from tts_tpu_torch.runtime.api import (GenerationConfig, TTSError, TTSResponse, TTSRunner,
+                                       card_device)
 
 # decode steps the host keeps enqueued past the newest row it has read (the
 # stop check): at most this many steps run, and are discarded, after a stop
@@ -120,7 +121,7 @@ class DiaConfig:
         )
 
 
-def load_dia_params(tensors: dict, cfg: DiaConfig, device="cpu",
+def load_dia_params(tensors: dict, cfg: DiaConfig, device=None,
                     timings: dict | None = None) -> dict:
     """tensors: name -> GGUFTensor (or numpy array).  Decoder linears become,
     by `load_linear`, {"wq", "scales"} or {"wq4", "scales"}; dense ones
@@ -130,6 +131,7 @@ def load_dia_params(tensors: dict, cfg: DiaConfig, device="cpu",
     the 9 heads to "heads" [9, hidden, vocab], in bf16 when any decoder
     linear is quantized.  `timings`, if given, collects packing and upload
     seconds."""
+    device = card_device(device)
     timings = {} if timings is None else timings
     timings.setdefault("pack_s", 0.0)
     timings.setdefault("upload_s", 0.0)
@@ -262,10 +264,11 @@ def dia_cross_kv(params: dict, cfg: DiaConfig, enc_states: torch.Tensor, n_valid
     return {"k": torch.stack(ks).contiguous(), "v": torch.stack(vs).contiguous()}
 
 
-def init_dia_cache(cfg: DiaConfig, device="cpu") -> dict:
+def init_dia_cache(cfg: DiaConfig, device=None) -> dict:
     """Head-major self-attention K/V [L, 2, Hkv, max_gen, hs] in
     cfg.kv_dtype.  Slots past a request's position are never read, so it
     is reused unzeroed."""
+    device = card_device(device)
     shape = (cfg.n_decoder_layers, 2, cfg.kv_heads, cfg.max_generation_size, cfg.head_size)
     dt = getattr(torch, cfg.kv_dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),

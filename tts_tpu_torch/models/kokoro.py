@@ -37,6 +37,7 @@ per-dispatch cost:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tts_tpu_torch.core.device import card_device
 from tts_tpu_torch.ops.basic import (
     ada_instance_norm, ada_layer_norm, layer_norm, leaky_relu, snake,
 )
@@ -53,7 +55,6 @@ from tts_tpu_torch.ops.lstm import bilstm, flatten_bilstm, pack_lstm_params
 from tts_tpu_torch.ops.resample import upsample_linear, upsample_nearest
 from tts_tpu_torch.ops.stft import hann_window, istft, stft
 from tts_tpu_torch.parallel.mesh import Shards
-from tts_tpu_torch.runtime.api import card_device
 
 
 @dataclass(frozen=True)
@@ -192,8 +193,9 @@ def _flatten_lstms(p: dict) -> None:
         flatten_bilstm(lstm["fwd"], lstm["bwd"])
 
 
-def load_kokoro_params(tensors: dict, kv: dict, cfg: KokoroConfig, device="cpu") -> dict:
+def load_kokoro_params(tensors: dict, kv: dict, cfg: KokoroConfig, device=None) -> dict:
     """tensors: GGUF name ('kokoro.' prefix included) -> numpy array."""
+    device = card_device(device)
 
     def get(name, optional: bool = False):
         t = tensors.get(name)
@@ -327,11 +329,13 @@ def load_kokoro_params(tensors: dict, kv: dict, cfg: KokoroConfig, device="cpu")
     return p
 
 
-def params_from_jax(np_params, device="cpu"):
+def params_from_jax(np_params, device=None):
     """The JAX package's Kokoro params (`load_kokoro_params`), as numpy
     arrays -> the port's tree on `device`: the same values, with each LSTM
     direction {"w_ih" [in, 4H], "w_hh" [H, 4H], "b"} turned into cuDNN's
     {"w_ih" [4H, in], "w_hh" [4H, H], "b_ih" = b, "b_hh" = 0}."""
+    device = card_device(device)
+
     def convert(v):
         if isinstance(v, dict):
             if v.keys() == {"w_ih", "w_hh", "b"}:
@@ -678,10 +682,10 @@ class KokoroModel:
 
     device_arrays = ("params", "window")
 
-    def __init__(self, cfg: KokoroConfig, params: dict, device="cpu"):
+    def __init__(self, cfg: KokoroConfig, params: dict, device=None):
         self.cfg = cfg
         self.params = params
-        self.device = torch.device(device)
+        self.device = card_device(device)
         self.window = torch.from_numpy(hann_window(cfg.n_fft)).to(self.device)
 
     @classmethod
@@ -753,3 +757,26 @@ class KokoroModel:
             audio = generate_audio(self.params, cfg, tokens, pred, hidden, style_gen,
                                    style_pros, noise.to(self.device), self.window, n_frames)
             return audio.cpu().numpy()
+
+    @contextlib.contextmanager
+    def recording_chunks(self):
+        """While open, each call of `synthesize` appends its chunk's token
+        ids to the list this yields, so a caller can hold a response's
+        length to `chunk_frames` of its chunks after the request, the
+        check apart from its time.  One caller at a time."""
+        chunks = []
+        synthesize = self.synthesize
+
+        def recording(token_ids, voice, seed=0, **kw):
+            chunks.append(list(token_ids))
+            return synthesize(token_ids, voice, seed=seed, **kw)
+
+        self.synthesize = recording
+        try:
+            yield chunks
+        finally:
+            del self.synthesize
+
+    def chunk_frames(self, chunks, voice: str) -> list[int]:
+        """Each chunk's frame count as the duration predictor gives it."""
+        return [int(self.predict_durations(t, voice)[2].sum().item()) for t in chunks]

@@ -56,7 +56,8 @@ from tts_tpu_torch.ops.qmatmul import linear, linear_format, pack_q4_weight, pac
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_drafts, spec_enabled
 from tts_tpu_torch.parallel.mesh import Shards, named, place, replicated, tree_map
-from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSResponse, TTSRunner
+from tts_tpu_torch.runtime.api import (GenerationConfig, TTSError, TTSResponse, TTSRunner,
+                                       card_device)
 from tts_tpu_torch.text.tokenizers import BPETokenizer
 
 ORPHEUS_VOICES = ("zoe", "zac", "jess", "leo", "mia", "julia", "leah")
@@ -112,7 +113,7 @@ class OrpheusConfig:
         )
 
 
-def load_orpheus_params(tensors: dict, cfg: OrpheusConfig, device="cpu",
+def load_orpheus_params(tensors: dict, cfg: OrpheusConfig, device=None,
                         timings: dict | None = None) -> dict:
     """tensors: name -> GGUFTensor (or numpy array).  Quantized linears
     become, by `linear_format`, {"wq": int8 [in, out], "scales": f16
@@ -121,6 +122,7 @@ def load_orpheus_params(tensors: dict, cfg: OrpheusConfig, device="cpu",
     on `device`); q/k/v and gate/up of one layout fuse along the output dim;
     the lm_head pads to 1024 columns.  `timings`, if given, collects packing
     and upload seconds."""
+    device = card_device(device)
     timings = {} if timings is None else timings
     timings.setdefault("pack_s", 0.0)
     timings.setdefault("upload_s", 0.0)
@@ -374,12 +376,13 @@ def padded_cache_length(cfg: OrpheusConfig) -> int:
     return -(-cfg.cache_length // S_CHUNK) * S_CHUNK
 
 
-def init_kv_cache(cfg: OrpheusConfig, device="cpu") -> dict:
+def init_kv_cache(cfg: OrpheusConfig, device=None) -> dict:
     """Head-major cache [L, Hkv, S, hs], S padded to the kernel's 512 chunk;
     with cfg.kv_quant int8 k/v plus f32 scales ks/vs [L, Hkv, S]; and the
     flash-decode arrival counters of this cache, which every layer's launch
     leaves at zero.  Entries past a request's position are never read, so
     it is reused unzeroed."""
+    device = card_device(device)
     shape = (cfg.n_layers, cfg.n_kv_attn_heads, padded_cache_length(cfg), cfg.head_size)
     counters = arrival_counters(cfg.n_kv_attn_heads, device)
     if cfg.kv_quant:

@@ -48,7 +48,8 @@ from tts_tpu_torch.models.registry import register_loader
 from tts_tpu_torch.ops.qmatmul import apply_linear, load_linear
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_draft_rows, spec_enabled
-from tts_tpu_torch.runtime.api import GenerationConfig, TTSError, TTSResponse, TTSRunner
+from tts_tpu_torch.runtime.api import (GenerationConfig, TTSError, TTSResponse, TTSRunner,
+                                       card_device)
 from tts_tpu_torch.text.tokenizers import UnigramTokenizer
 
 # decode steps the host keeps enqueued past the newest row it has read (the
@@ -97,7 +98,7 @@ class ParlerConfig:
         )
 
 
-def load_parler_params(tensors: dict, cfg: ParlerConfig, device="cpu",
+def load_parler_params(tensors: dict, cfg: ParlerConfig, device=None,
                        timings: dict | None = None) -> dict:
     """tensors: name -> GGUFTensor (or numpy array).  Quantized decoder
     linears become, by `linear_format`, {"wq", "scales"} (int8, packed on
@@ -106,6 +107,7 @@ def load_parler_params(tensors: dict, cfg: ParlerConfig, device="cpu",
     embeddings stack to "embds" [9, audio_vocab + 2, hidden] and the 9
     heads to "heads" [9, hidden, vocab], in bf16 when any linear is
     quantized.  `timings`, if given, collects packing and upload seconds."""
+    device = card_device(device)
     timings = {} if timings is None else timings
     timings.setdefault("pack_s", 0.0)
     timings.setdefault("upload_s", 0.0)
@@ -172,8 +174,9 @@ def parler_params_quantized(params) -> bool:
     return any("w" not in L[n] for L in params["layers"] for n in ("sa_q", "fc1"))
 
 
-def init_kv_cache(cfg: ParlerConfig, device="cpu") -> dict:
+def init_kv_cache(cfg: ParlerConfig, device=None) -> dict:
     """Position-major K/V [L, max_ctx, H, hs] in cfg.kv_dtype."""
+    device = card_device(device)
     shape = (cfg.n_layers, cfg.max_ctx_length, cfg.n_attn_heads, cfg.head_size)
     dt = getattr(torch, cfg.kv_dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),

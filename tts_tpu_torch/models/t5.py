@@ -22,8 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tts_tpu_torch.core.device import card_device
 from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
-from tts_tpu_torch.runtime.api import card_device
 from tts_tpu_torch.text.tokenizers import UnigramTokenizer
 
 
@@ -59,10 +59,12 @@ class T5Config:
         )
 
 
-def load_t5_params(tensors: dict, cfg: T5Config, device="cpu") -> dict:
+def load_t5_params(tensors: dict, cfg: T5Config, device=None) -> dict:
     """tensors: name -> GGUFTensor or numpy array.  Every tensor becomes f32
     on `device` (F16 ones are uploaded as F16 and widened there); linears
     keep their [out, in] layout for `F.linear`."""
+    device = card_device(device)
+
     def get(name, optional=False):
         t = tensors.get(name)
         if t is None:
@@ -99,10 +101,11 @@ def _rms_norm(x, w, eps: float = 1e-6):
 
 
 def relative_position_buckets(n: int, n_buckets: int = 32, max_distance: int = 128,
-                              device="cpu") -> torch.Tensor:
+                              device=None) -> torch.Tensor:
     """Bidirectional T5 relative position buckets [n, n] (query, key):
     rel = key - query, offset by half the buckets for future keys (the
     JAX package's convention, held to transformers' T5EncoderModel)."""
+    device = card_device(device)
     half = n_buckets // 2
     max_exact = half // 2
     q = np.arange(n)[:, None]

@@ -25,11 +25,14 @@ import numpy as np
 import torch
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from tts_tpu_torch.core.device import card_device
+
 
 def pack_lstm_params(tensors: dict, prefix: str, reverse: bool = False,
-                     device="cpu") -> dict:
+                     device=None) -> dict:
     """8 GGUF LSTM tensors (numpy) -> {"w_ih" [4H, in], "w_hh" [4H, H],
     "b_ih" [4H] (both biases summed), "b_hh" [4H] (zeros)}, f32 on `device`."""
+    device = card_device(device)
     wkey = "reverse_weights" if reverse else "weights"
     bkey = "reverse_biases" if reverse else "biases"
 

@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from tts_tpu_torch.core.device import card_device
 from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
 from tts_tpu_torch.core.quant import Q4_0_BLOCK_BYTES
 from tts_tpu_torch.ops import _ext
@@ -98,13 +99,14 @@ def pack_q4_nibbles(values: torch.Tensor) -> torch.Tensor:
     return (u[: K // 2] | (u[K // 2:] << 4)).view(torch.int8)
 
 
-def pack_q4_weight(tensor, pad_n: bool = False, tile_n: int = 256, device="cpu",
+def pack_q4_weight(tensor, pad_n: bool = False, tile_n: int = 256, device=None,
                    timings: dict | None = None) -> dict:
     """GGUFTensor (Q4_0, [out, in], in % 64 == 0) -> {"wq4": int8 [in/2,
     out], "scales": float16 [in/32, out]} on `device`: the raw blocks (0.5625
     bytes per weight) are uploaded and unpacked there with torch ops only.
     `pad_n` as in `pack_q8_weight`.  `timings`, if given, adds the seconds
     of the upload to "upload_s" and of the unpacking to "pack_s"."""
+    device = card_device(device)
     timings = {} if timings is None else timings
     out_dim, in_dim = tensor.shape
     t0 = time.perf_counter()
@@ -128,12 +130,13 @@ def pack_q4_weight(tensor, pad_n: bool = False, tile_n: int = 256, device="cpu",
     return {"wq4": wq4, "scales": scales}
 
 
-def load_linear(tensor, device="cpu", timings: dict | None = None) -> dict | None:
+def load_linear(tensor, device=None, timings: dict | None = None) -> dict | None:
     """A GGUF linear [out, in] as `linear_format` stores it on `device`:
     {"wq", "scales"} (int8, packed on the host) or {"wq4", "scales"}
     (packed int4, unpacked on `device`); None for a dense one, which the
     caller loads.  `timings`, if given, adds packing and upload seconds
     to "pack_s" and "upload_s"."""
+    device = card_device(device)
     timings = {} if timings is None else timings
     fmt = linear_format(tensor)
     if fmt == "wq4":

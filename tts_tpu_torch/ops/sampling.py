@@ -14,8 +14,11 @@ from __future__ import annotations
 
 import torch
 
+from tts_tpu_torch.core.device import card_device
 
-def init_state(n_heads: int, device="cpu") -> dict:
+
+def init_state(n_heads: int, device=None) -> dict:
+    device = card_device(device)
     return {"last": torch.full((n_heads,), -1, dtype=torch.int32, device=device),
             "count": torch.zeros((n_heads,), dtype=torch.int32, device=device)}
 

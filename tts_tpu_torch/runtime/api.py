@@ -13,6 +13,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from tts_tpu_torch.core.device import TTSError, card_device  # noqa: F401
+
 
 @dataclass
 class GenerationConfig:
@@ -42,21 +44,6 @@ class TTSResponse:
     @property
     def duration_s(self) -> float:
         return float(len(self.audio)) / float(self.sample_rate)
-
-
-class TTSError(RuntimeError):
-    """Recoverable user-facing error (bad voice, prompt too long, ...)."""
-
-
-def card_device(device=None):
-    """`device` as a torch.device, the card ("cuda") when None.  A CUDA
-    device with no card raises TTSError: nothing falls back to the CPU."""
-    import torch
-
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise TTSError(f"device '{device}' requested but no CUDA device is available")
-    return device
 
 
 class TTSRunner:
