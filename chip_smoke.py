@@ -42,12 +42,23 @@ Phases (any failure exits non-zero, before the final line):
      port's CPU (plain) forwards, then seeded random full-width Orpheus-3B
      GGUFs (28 layers, F16 embedding, full-width SNAC), Q8_0 and Q4_0,
      written under smoke_models/
-  5. server: the port's server on cuda answers 3 /v1/audio/speech requests
-     (2 sampled, 1 greedy: the speculative loop) and a greedy PCM stream
-     (TTFA) from the Q8_0 model, then from the Q4_0 model; the launch
-     counts of each run, exact against the forwards it ran, show which
-     kernels served it; then the greedy bracket: speculative, force_miss
-     and sequential tok/s after one prefill
+  5. server: the port's server on cuda, after its --warmup (the server's
+     warmup(): three prompts and a streamed first chunk, which capture the
+     decode graph of the default sampling key), answers 3 /v1/audio/speech
+     requests (2 sampled: the captured decode step replayed once per token;
+     1 greedy: the speculative loop) and a greedy PCM stream (TTFA) from the
+     Q8_0 model, then from the Q4_0 model (the first request's wall beside
+     the second's); the launch counts of each run, exact against the
+     forwards it ran (a graph replay counts what its capture launched),
+     show which kernels served it; then the decode rounds: sampled tok/s of
+     the eager and the graph route in alternating rounds (eager, graph,
+     graph, eager) at one seed, tokens equal and launches exact, other
+     sampling values on the same graph equal to their eager run, the device
+     ms of one replay and a profiled graph-route request (device busy
+     share); then the greedy bracket: speculative, force_miss and
+     sequential tok/s after one prefill; on Q4_0 last, `python -m
+     tts_tpu_torch.apps.server --warmup` as its own process (`warmup ok`
+     before it listens, then two sampled requests)
   6. Kokoro-82M, which runs none of the five kernels: a tiny model's cuda
      run against its CPU run (f32, cuDNN TF32 off, the same noise; stage by
      stage, as the CPU tests hold port to JAX); then a
@@ -254,6 +265,15 @@ DIA_TINY = dict(enc_layers=2, dec_layers=2, enc_hidden=256, dec_hidden=256, enc_
 # at most 2^-7 of the largest magnitude
 DIA_CROSS_TOL = 2.0 ** -7
 ORPHEUS_BRACKET_TOKENS = 70        # phase 5's greedy bracket
+# phase 5's --warmup: the cap of its three prompts and first chunk on the
+# in-process server (random weights never emit the stop token)
+WARM_TOKENS = 280
+# phase 5's decode rounds (eager, graph, graph, eager; then other sampling
+# values, graph and eager): one sampled request each
+ROUND_TOKENS = 210
+PROFILE_TOKENS = 140               # the profiled graph-route request
+REPLAYS = 64                       # graph replays timed with CUDA events
+SERVER_START_S = 300               # the --warmup server process: load, warmup, listen
 # phase 5's requests to each model: (kind, /v1/audio/speech payload)
 REQUESTS = (
     ("sampled", {"input": "Hello from the port, this is a first test.", "voice": "zoe",
@@ -742,6 +762,35 @@ def _counting(module, name: str, kind):
     return calls, lambda: setattr(module, name, fn)
 
 
+def orpheus_forwards():
+    """Count Orpheus forwards by kind in one Counter: "prefill" and
+    "verify" from `_orpheus_body` at T > 1, "step" from `DecodeGraph.run`
+    (one decode step on the card: a graph replay, the first step and its
+    capture, or an eager step; the body a step runs is not counted again);
+    returns (counter, restore)."""
+    import collections
+
+    from tts_tpu_torch.models import orpheus as tor
+
+    calls: collections.Counter = collections.Counter()
+    body, run = tor._orpheus_body, tor.DecodeGraph.run
+
+    def counted_body(params, cfg, tokens, positions, cache, start=0):
+        if tokens.shape[0] > 1:
+            calls["verify" if start else "prefill"] += 1
+        return body(params, cfg, tokens, positions, cache, start)
+
+    def counted_run(self):
+        calls["step"] += 1
+        return run(self)
+
+    tor._orpheus_body, tor.DecodeGraph.run = counted_body, counted_run
+
+    def restore():
+        tor._orpheus_body, tor.DecodeGraph.run = body, run
+    return calls, restore
+
+
 def orpheus_bracket(runner, text: str) -> dict:
     """Greedy tok/s of one ORPHEUS_BRACKET_TOKENS request decoded three ways
     after the same prefill: the speculative loop, its force_miss floor
@@ -783,14 +832,15 @@ def orpheus_bracket(runner, text: str) -> dict:
 
 
 def server(path: str, qtype: str) -> tuple[dict, object]:
-    """Serve 3 requests and a greedy PCM stream from one full-width model;
-    returns the launch counts of that run, every counter set to 0 just
-    before it, and the runner."""
+    """Serve 3 requests and a greedy PCM stream from one full-width model
+    after the server's --warmup; returns the launch counts of that run,
+    every counter set to 0 just before it, and the runner.  Then the decode
+    rounds, eager against graph, and (Q4_0) the server as its own process
+    with --warmup."""
     phase(f"5 server, Orpheus-3B {qtype}")
     import torch
 
-    from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
-    from tts_tpu_torch.models import orpheus as tor
+    from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers, warmup
     from tts_tpu_torch.runtime.api import GenerationConfig
 
     gc.collect()
@@ -806,6 +856,14 @@ def server(path: str, qtype: str) -> tuple[dict, object]:
           + "  ".join(f"{k} {v:.1f}" for k, v in runner.load_timings.items()))
     print(f"after load: memory_allocated {torch.cuda.memory_allocated() / gib:.2f} GiB, "
           f"max_memory_allocated during load {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    t0 = time.perf_counter()
+    check(warmup(state, GenerationConfig(top_k=50, max_tokens=WARM_TOKENS)), "--warmup failed")
+    graph = runner._steps.get(("graph", 50, True, False))
+    check(graph is not None and graph.graph is not None,
+          f"--warmup captured no decode graph of the default key: {list(runner._steps)}")
+    print(f"--warmup (the server's warmup(): its three prompts and a streamed first chunk, "
+          f"{WARM_TOKENS} tokens each): {time.perf_counter() - t0:.1f} s; decode steps "
+          f"captured: {[k for k, v in runner._steps.items() if v.graph is not None]}")
     torch.cuda.reset_peak_memory_stats()
     responses = []
     generate = runner.generate
@@ -816,26 +874,27 @@ def server(path: str, qtype: str) -> tuple[dict, object]:
         return resp
 
     runner.generate = recording_generate
-    # a forward of one token is a decode step, one at position 0 a prefill,
-    # any other a verify window
-    forwards, restore = _counting(tor, "_orpheus_body", lambda p, c, tokens, positions, cache,
-                                  start=0: "step" if tokens.shape[0] == 1
-                                  else "verify" if start else "prefill")
+    forwards, restore = orpheus_forwards()
     srv = make_server(state, port=0)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     port = srv.server_address[1]
     counters = launch_counters()
     for kernel in counters.values():
         kernel.launches = 0
+    walls = []
     try:
         for kind, payload in REQUESTS:
             t = time.perf_counter()
             status, body, ctype = _post(port, payload)
             wall = time.perf_counter() - t
+            walls.append(wall)
             check(status == 200 and ctype == "audio/wav", f"{kind}: HTTP {status} {ctype}: "
                   f"{body[:200]!r}")
             resp = responses[-1]
             steps = resp.timings["decode_steps"]
+            route = resp.timings["decode_route"]
+            check(route == ("graph" if kind == "sampled" else "spec"),
+                  f"{kind}: decode route {route}")
             with wave.open(io.BytesIO(body)) as wf:
                 n = wf.getnframes()
                 check(wf.getframerate() == 24000, f"{kind}: rate {wf.getframerate()}")
@@ -849,8 +908,10 @@ def server(path: str, qtype: str) -> tuple[dict, object]:
             dec_s = resp.timings["decode_ms"] / 1e3
             print(f"{kind:7s} wall {wall * 1e3:8.1f} ms  prefill {resp.timings['prompt_tokens']}"
                   f" tok in {resp.timings['prefill_ms']:7.1f} ms  decode {steps} tok in {dec_s * 1e3:8.1f} ms = {steps / dec_s:6.1f} tok/s"
-                  f"  codec {resp.timings['codec_ms']:6.1f} ms  audio {n / 24000:.3f} s  "
+                  f" ({route})  codec {resp.timings['codec_ms']:6.1f} ms  audio {n / 24000:.3f} s  "
                   f"RTF {wall / (n / 24000):.3f}")
+        print(f"first request after --warmup: wall {walls[0] * 1e3:.1f} ms; the second "
+              f"(same length, same key): {walls[1] * 1e3:.1f} ms")
         verify_before = forwards["verify"]
         check(verify_before > 0, "the greedy request ran no verify window")
         kind, payload = REQUESTS[2]
@@ -895,11 +956,166 @@ def server(path: str, qtype: str) -> tuple[dict, object]:
             check(counts[other[0]] == counts[other[1]] == 0,
                   f"the {qtype} path launched {other}: {counts}")
     print(f"after the requests: memory_allocated {torch.cuda.memory_allocated() / gib:.2f} GiB"
-          f" (the runner keeps its KV cache), max_memory_allocated during the requests "
-          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
-    summary = {"ttfa_ms": ttfa * 1e3, "bracket": orpheus_bracket(runner, REQUESTS[2][1]["input"])}
+          f" (the runner keeps its KV cache and decode graph), max_memory_allocated during "
+          f"the requests {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    summary = {"ttfa_ms": ttfa * 1e3, "first_wall_ms": walls[0] * 1e3,
+               "second_wall_ms": walls[1] * 1e3, "rounds": decode_rounds(runner, qtype),
+               "bracket": orpheus_bracket(runner, REQUESTS[2][1]["input"])}
+    if qtype == "Q4_0":
+        summary["server_process"] = server_process(path)
     print(json.dumps({f"orpheus_{qtype}": summary}))
     return counts, runner
+
+
+def decode_rounds(runner, qtype: str) -> dict:
+    """Sampled decode tok/s of the eager and the graph route in alternating
+    rounds (eager, graph, graph, eager) of one ROUND_TOKENS request through
+    runner.generate at one seed, every round's tokens equal and the launches
+    exact; then a request with another temperature and penalty on the same
+    key (the same captured graph), graph then eager: equal to each other,
+    not to the first config's; the device ms of one graph replay (CUDA
+    events over REPLAYS replays); and one profiled graph-route request."""
+    import dataclasses
+
+    import torch
+
+    from tts_tpu_torch.models import orpheus as tor
+    from tts_tpu_torch.runtime.api import GenerationConfig
+    from tts_tpu_torch.utils.trace import profile_request
+
+    text = REQUESTS[0][1]["input"]
+    a = GenerationConfig(top_k=50, seed=11, max_tokens=ROUND_TOKENS, voice="zoe")
+    b = dataclasses.replace(a, temperature=0.7, repetition_penalty=1.2)
+    seen = []
+    loop = tor.orpheus_decode_loop
+
+    def recording(*args, **kw):
+        out = loop(*args, **kw)
+        seen.append(out[0])
+        return out
+
+    tor.orpheus_decode_loop = recording
+    forwards, restore = orpheus_forwards()
+    counters = launch_counters()
+    for kernel in counters.values():
+        kernel.launches = 0
+    rates: dict = {"eager": [], "graph": []}
+    toks: dict = {}
+    try:
+        for route, config in (("eager", a), ("graph", a), ("graph", a), ("eager", a),
+                              ("graph", b), ("eager", b)):
+            runner.decode_route = route
+            resp = runner.generate(text, config)
+            check(resp.timings["decode_route"] == route,
+                  f"rounds: a {route} request took {resp.timings['decode_route']}")
+            toks.setdefault((route, config is a), []).append(seen[-1])
+            rate = len(seen[-1]) / (resp.timings["decode_ms"] / 1e3)
+            if config is a:
+                rates[route].append(rate)
+            print(f"[{qtype}] round {route:5s} temperature {config.temperature} penalty "
+                  f"{config.repetition_penalty}: {len(seen[-1])} tokens decoded at "
+                  f"{rate:6.1f} tok/s, wall {resp.timings['decode_ms']:8.1f} ms")
+    finally:
+        counts = _kernel_counts()
+        restore()
+        tor.orpheus_decode_loop = loop
+        runner.decode_route = "graph"
+    gemv, gemm = PATH_KERNELS[qtype]
+    per = LAYERS * LINEARS_PER_LAYER
+    want = dict.fromkeys(counts, 0)
+    want.update({gemv: (per + 1) * forwards["step"] + forwards["prefill"],
+                 gemm: per * forwards["prefill"], "flash_decode": LAYERS * forwards["step"]})
+    print(f"[{qtype}] launches over the rounds (forwards {dict(forwards)}): {counts}")
+    check(counts == want and forwards["prefill"] == 6, f"rounds: launches {counts}, not {want}")
+    first = toks[("eager", True)][0]
+    check(all(t == first for k, ts_ in toks.items() if k[1] for t in ts_),
+          f"[{qtype}] the graph and eager rounds' tokens differ at one seed")
+    check(toks[("graph", False)] == toks[("eager", False)],
+          f"[{qtype}] other sampling values: graph and eager tokens differ")
+    check(toks[("graph", False)][0] != first,
+          f"[{qtype}] other sampling values gave the first config's tokens")
+    step = runner._decode_step(a)
+    check(step.graph is not None, "no captured graph after the rounds")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        start.record()
+        for _ in range(REPLAYS):
+            step.graph.replay()
+        end.record()
+        end.synchronize()
+    replay_ms = start.elapsed_time(end) / REPLAYS
+    graph_rate = sum(rates["graph"]) / len(rates["graph"])
+    print(f"[{qtype}] sampled decode tok/s in rounds eager, graph, graph, eager: "
+          f"{rates['eager'][0]:.1f}, {rates['graph'][0]:.1f}, {rates['graph'][1]:.1f}, "
+          f"{rates['eager'][1]:.1f}; tokens equal at one seed in all four; other values "
+          f"(temperature 0.7, penalty 1.2) on the same graph equal their eager run")
+    print(f"[{qtype}] one graph replay: {replay_ms:.3f} ms of device time (CUDA events, "
+          f"{REPLAYS} replays) -> {1e3 / replay_ms:.1f} tok/s bound; the graph rounds' decode "
+          f"keeps the device busy ~{graph_rate * replay_ms / 1e3:.1%} of their wall")
+    prof = profile_request(runner, text, dataclasses.replace(a, max_tokens=PROFILE_TOKENS))
+    print(f"[{qtype}] profiled graph-route request ({PROFILE_TOKENS} tokens): wall "
+          f"{prof['wall_ms']:.1f} ms (unprofiled {prof['unprofiled_wall_ms']:.1f}), device busy "
+          f"{prof['device_busy_ms']:.1f} ms = {prof['device_busy_share_of_unprofiled_wall']:.1%} "
+          f"of the unprofiled wall, {prof['device_kernels']} device kernels; top: "
+          + "; ".join(f"{k['name'][:60]} x{k['calls']} {k['device_ms']:.1f} ms"
+                      for k in prof["top_kernels"][:5]))
+    return {"tok_per_s": rates, "replay_ms": replay_ms, "profile": {
+        k: prof[k] for k in ("wall_ms", "unprofiled_wall_ms", "device_busy_ms",
+                             "device_busy_share_of_unprofiled_wall", "device_kernels")}}
+
+
+def server_process(path: str) -> dict:
+    """`python -m tts_tpu_torch.apps.server --warmup` as its own process on
+    `path`: it must print `warmup ok` before its listening line, then
+    answer two sampled requests (walls of the first and the second); the
+    process is ended after."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tts_tpu_torch.apps.server", "--model-path",
+                             path, "--port", str(port), "--warmup"], cwd=ROOT,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    lines: list = []
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        while not any("listening" in line for line in lines):
+            check(proc.poll() is None and time.perf_counter() - t0 < SERVER_START_S,
+                  f"server --warmup: not listening (exit {proc.poll()}): {lines[-10:]}")
+            time.sleep(0.5)
+        start_s = time.perf_counter() - t0
+        listening = next(i for i, line in enumerate(lines) if "listening" in line)
+        check("warmup ok" in lines[:listening], f"server --warmup: {lines[:listening]}")
+        walls = []
+        for kind, payload in REQUESTS[:2]:
+            t = time.perf_counter()
+            status, body, ctype = _post(port, payload)
+            walls.append(time.perf_counter() - t)
+            with wave.open(io.BytesIO(body)) as wf:
+                n = wf.getnframes()
+            check(status == 200 and n == (payload["max_tokens"] // 7) * 4 * 512,
+                  f"server process {kind}: HTTP {status}, {n} samples")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    warm = [line for line in lines[:listening] if "warm" in line]
+    print(f"python -m tts_tpu_torch.apps.server --warmup (Q4_0, its own process): listening "
+          f"{start_s:.1f} s after its start ({warm}); first request wall "
+          f"{walls[0] * 1e3:.1f} ms, second {walls[1] * 1e3:.1f} ms")
+    return {"listening_s": start_s, "first_wall_ms": walls[0] * 1e3,
+            "second_wall_ms": walls[1] * 1e3}
 
 
 def kokoro_tiny_cuda_vs_cpu():
@@ -2001,14 +2217,11 @@ def apps_cli_orpheus(card: str, path: str) -> tuple[dict, dict]:
     """The cli in this process on phase 5's Orpheus-3B Q4_0 with --vad,
     APPS_ORPHEUS_TOKENS tokens sampled (the sequential loop): launches
     exact against the forwards it ran, as in phase 5."""
-    from tts_tpu_torch.models import orpheus as tor
     from tts_tpu_torch.runtime.vad import trim_silence
 
     kind, payload = REQUESTS[0]
     wav = os.path.join(MODEL_DIR, "apps_orpheus_q4.wav")
-    forwards, restore = _counting(tor, "_orpheus_body", lambda p, c, tokens, positions, cache,
-                                  start=0: "step" if tokens.shape[0] == 1
-                                  else "verify" if start else "prefill")
+    forwards, restore = orpheus_forwards()
     for kernel in launch_counters().values():
         kernel.launches = 0
     try:
@@ -2365,9 +2578,7 @@ def parallel_orpheus(card: str, runner, q4_path: str) -> tuple[dict, dict]:
           and all(c["k"].shape[1] == HKV // 2 for c in tp._cache),
           "the KV cache is not split by KV heads")
 
-    forwards, restore = _counting(tor, "_orpheus_body", lambda p, c, tokens, positions, cache,
-                                  start=0: "step" if tokens.shape[0] == 1
-                                  else "verify" if start else "prefill")
+    forwards, restore = orpheus_forwards()
     counters = launch_counters()
     for kernel in counters.values():
         kernel.launches = 0
@@ -2779,7 +2990,6 @@ def last_modules(card: str, orpheus_q8, orpheus_paths: dict) -> dict:
     import torch
 
     from tts_tpu_torch.core.gguf import GGUFFile
-    from tts_tpu_torch.models import orpheus as tor
     from tts_tpu_torch.models.kokoro import KokoroConfig
     from tts_tpu_torch.models.registry import runner_from_file
     from tts_tpu_torch.runtime.api import GenerationConfig
@@ -2804,9 +3014,7 @@ def last_modules(card: str, orpheus_q8, orpheus_paths: dict) -> dict:
     # the sequential route, whose steps run the GEMV and flash_decode (a
     # greedy request takes the speculative loop otherwise)
     per = LAYERS * LINEARS_PER_LAYER
-    forwards, restore = _counting(tor, "_orpheus_body", lambda p, c, tokens, positions, cache,
-                                  start=0: "step" if tokens.shape[0] == 1
-                                  else "verify" if start else "prefill")
+    forwards, restore = orpheus_forwards()
 
     def orpheus_want(report):
         steps = report["stages"]["n_tokens"] - 1

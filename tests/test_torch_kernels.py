@@ -1,5 +1,7 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the card,
-at the Orpheus-3B shapes and at Parler-TTS mini v1's and Dia-1.6B's.  Every
+at the Orpheus-3B shapes and at Parler-TTS mini v1's and Dia-1.6B's, and
+Orpheus's decode step captured as one CUDA graph against its eager steps
+(tokens, other sampling values on one graph, launch counts).  Every
 test here needs a CUDA device and skips without one; the file imports no
 jax, so it runs where only the port does:
 
@@ -479,3 +481,133 @@ def test_dia_gemm_matches_plain(cuda, M, K, N, packed):
     acts = _ext.device_activity(lambda: fn(x, w, sc))
     assert len(acts) == 1 + (splits > 1), acts
     assert acts[0]["grid"] == [-(-N // tile_n), -(-M // m_tile), splits], acts
+
+
+# ---------------------------------------------------------------------------
+# Orpheus's decode step captured as one CUDA graph (models/orpheus.py
+# DecodeGraph) against the same step run eagerly, on a tiny random model
+# written by the port's own builder (2 layers, hidden 256, head size 128,
+# the real 156,940-row vocabulary)
+ORPHEUS_TINY = dict(n_layers=2, hidden=256, heads=4, kv_heads=2, head_dim=128, ffn=512,
+                    vocab=156940, snac_embd=96, snac_channels=(48, 24, 12, 6))
+GRAPH_TEXT = "graph or eager"
+
+
+@pytest.fixture(scope="module")
+def tiny_orpheus(tmp_path_factory):
+    """tiny_orpheus(qtype) -> the tiny model's path (written once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with -m cuda)")
+    from tts_tpu_torch.convert.builder_orpheus import write_random_orpheus
+
+    built = {}
+
+    def get(qtype):
+        if qtype not in built:
+            path = tmp_path_factory.mktemp("orpheus") / f"tiny_{qtype}.gguf"
+            built[qtype] = str(write_random_orpheus(path, seed=0, qtype=qtype, **ORPHEUS_TINY))
+        return built[qtype]
+    return get
+
+
+def _decode(runner, route: str, config):
+    """One request's prefill and sequential decode on `route` (as generate
+    runs them): (tokens, sampler state at the end, the DecodeGraph)."""
+    from tts_tpu_torch.models import orpheus as tor
+
+    runner.decode_route = route
+    ids = runner._prompt_ids(GRAPH_TEXT, config)
+    with torch.inference_mode():
+        _, first, generator, state, max_steps = runner._prefill(ids, config)
+        step = runner._decode_step(config)
+        got, state = tor.orpheus_decode_loop(runner.params, runner.cfg, first, len(ids),
+                                             max_steps - 1, runner._cache, generator, state,
+                                             step=step, **runner._sample_kw(config))
+    torch.cuda.synchronize()
+    return [int(first[0])] + got, {k: v.tolist() for k, v in state.items()}, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+@pytest.mark.parametrize("sample", [True, False], ids=["sampled", "greedy"])
+def test_orpheus_graph_route_gives_the_eager_tokens(cuda, tiny_orpheus, qtype, sample):
+    """At one seed the captured step (its first request, which captures, and
+    a second, which only replays) emits the eager steps' tokens and ends in
+    their sampler state, sampled (top-k 50, the runner's generator
+    registered with the graph) and greedy-sequential."""
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    runner = runner_from_file(tiny_orpheus(qtype), device="cuda")
+    config = GenerationConfig(seed=4, top_k=50, max_tokens=120, sample=sample)
+    eager = _decode(runner, "eager", config)
+    first = _decode(runner, "graph", config)
+    second = _decode(runner, "graph", config)
+    assert first[2] is second[2] and first[2].graph is not None
+    assert eager[2].graph is None and eager[2] is not first[2]
+    assert first[:2] == second[:2] == eager[:2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+def test_orpheus_graph_takes_each_requests_values(cuda, tiny_orpheus, qtype):
+    """A second request with another temperature, top_p and repetition
+    penalty (the same static key: top-k 50, top-p on) replays the graph the
+    first captured and equals its own eager run; with the first request's
+    values baked in it would give the first request's tokens."""
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    runner = runner_from_file(tiny_orpheus(qtype), device="cuda")
+    a = GenerationConfig(seed=3, top_k=50, top_p=0.95, max_tokens=100)
+    b = GenerationConfig(seed=3, top_k=50, top_p=0.7, temperature=0.6, repetition_penalty=1.4,
+                         max_tokens=100)
+    first = _decode(runner, "graph", a)
+    second = _decode(runner, "graph", b)
+    assert second[2] is first[2]
+    assert second[:2] == _decode(runner, "eager", b)[:2]
+    assert second[0] != first[0]
+
+
+@pytest.mark.cuda
+def test_orpheus_graph_launch_counts_are_exact(cuda, tiny_orpheus, monkeypatch):
+    """Launch counters count what the card ran: over a first graph request
+    (one eager step, the capture, replays) and a second (replays only),
+    9 GEMVs (4 per layer and the head) and 2 flash_decode per decode step,
+    8 GEMMs and one GEMV per prefill; the capture itself adds nothing."""
+    from tts_tpu_torch.models import orpheus as tor
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    steps = []
+    run = tor.DecodeGraph.run
+    monkeypatch.setattr(tor.DecodeGraph, "run", lambda self: steps.append(1) or run(self))
+    runner = runner_from_file(tiny_orpheus("Q8_0"), device="cuda")
+    config = GenerationConfig(seed=1, top_k=50, max_tokens=60)
+    for request in range(2):
+        for k in (tq.qgemv_int8, tq.qgemm_int8, tq.qgemv_int4, tq.qgemm_int4, ta.flash_decode):
+            k.launches = 0
+        steps.clear()
+        resp = runner.generate(GRAPH_TEXT, config)
+        torch.cuda.synchronize()
+        assert resp.timings["decode_route"] == "graph"
+        n = len(steps)
+        assert n >= resp.timings["decode_steps"] - 1 > 0
+        assert (tq.qgemv_int8.launches, tq.qgemm_int8.launches, ta.flash_decode.launches,
+                tq.qgemv_int4.launches, tq.qgemm_int4.launches) == (9 * n + 1, 8, 2 * n, 0, 0)
+
+
+@pytest.mark.cuda
+def test_orpheus_graph_replays_leave_the_counters_at_zero(cuda, tiny_orpheus):
+    """A sampled request of 700 tokens replays flash_decode across eleven
+    64-position chunks: its tokens are the eager steps' and the cache's
+    arrival counters end at zero."""
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    runner = runner_from_file(tiny_orpheus("Q4_0"), device="cuda")
+    config = GenerationConfig(seed=8, top_k=50, max_tokens=700)
+    graph = _decode(runner, "graph", config)
+    assert len(graph[0]) == 700
+    assert not runner._cache["counters"].any()
+    assert graph[:2] == _decode(runner, "eager", config)[:2]

@@ -122,8 +122,8 @@ def main(argv=None) -> int:
             return 0
 
     write_wav(args.save_path, audio, resp.sample_rate)
-    for stage, ms in resp.timings.items():
-        print(f"{stage} = {ms:.2f} ms")
+    for stage, ms in resp.timings.items():     # a str names a route (decode_route)
+        print(f"{stage} = {ms}" if isinstance(ms, str) else f"{stage} = {ms:.2f} ms")
     total_ms = (time.perf_counter() - t_start) * 1e3
     print(f"total time = {total_ms:.2f} ms")
     if resp.duration_s:

@@ -20,7 +20,13 @@ A task queue feeds a pool of worker threads that share one runner per model
 --data-parallel commits one replica per visible card and worker w drives
 replica w % n; --tensor-parallel N cuts each replica over N distinct cards
 (Orpheus; one replica unless --data-parallel), and raises where fewer are
-visible.  Not carried over: the warmup's bucket pinning.
+visible.  --warmup loads the default model and synthesizes the JAX
+server's three graded prompts and one streamed first chunk before serving:
+on the port that builds the kernels, captures the Orpheus decode graph of
+the default sampling key and meets the codecs' shapes, so none of that
+lands on a client's request.  The JAX warmup's bucket pinning
+(`freeze_warm_buckets`) has nothing to pin here: the port runs exact
+shapes, with no bucket ladder.
 """
 
 from __future__ import annotations
@@ -399,7 +405,42 @@ def stop_workers(state: ServerState, timeout: float = 60.0):
         w.join(timeout=timeout)
 
 
-def main(argv=None):
+# the JAX server's warm prompts: graded lengths, then the first one streamed
+WARM_PROMPTS = (
+    "Warm up.",
+    "The quick brown fox jumps over the lazy dog near the river bank.",
+    "A longer warmup utterance exercises the larger frame buckets: "
+    "it spans several clauses and phrases, so the shape ladder the "
+    "server will use for typical requests is compiled before the "
+    "first client request ever arrives.",
+)
+
+
+def warmup(state: ServerState, config: GenerationConfig) -> bool:
+    """--warmup: the default model synthesizes WARM_PROMPTS with `config`
+    through the task queue, then streams the first prompt's first chunk
+    (a runner with generate_stream) under its lock; each failure prints
+    `warmup FAILED: ...` and the last line is `warmup ok` or `warmup
+    FAILED`, on stderr.  Returns True if every prompt succeeded."""
+    print("warming up (model load, kernel build, decode graph capture)...", file=sys.stderr)
+    ok = True
+    for wp in WARM_PROMPTS:
+        result = state.submit({"kind": "tts", "model": state.default_model,
+                               "prompt": wp, "config": config})
+        ok = ok and result["success"]
+        if not result["success"]:
+            print(f"warmup FAILED: {result['message']}", file=sys.stderr)
+    runner, lock = state._get_runner(state.default_model)
+    if hasattr(runner, "generate_stream"):
+        with lock:
+            for _ in runner.generate_stream(WARM_PROMPTS[0], config):
+                break
+    print(f"warmup {'ok' if ok else 'FAILED'}", file=sys.stderr)
+    return ok
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX server's flags, plus --device."""
     p = argparse.ArgumentParser(prog="tts-server (torch)", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model-path", "-mp", required=True,
@@ -420,12 +461,22 @@ def main(argv=None):
     p.add_argument("--topk", "-tk", type=int, default=50)
     p.add_argument("--top-p", "-tp", type=float, default=1.0)
     p.add_argument("--repetition-penalty", "-r", type=float, default=1.0)
-    p.add_argument("--request-timeout", type=float, default=1800.0)
+    p.add_argument("--request-timeout", type=float, default=1800.0,
+                   help="seconds to wait for a generation (a first request without "
+                        "--warmup may pay the model load, the kernel build and a graph "
+                        "capture)")
+    p.add_argument("--warmup", action="store_true",
+                   help="load the default model and synthesize a short "
+                        "utterance before serving")
     p.add_argument("--ssl-file-cert", "-sfc", default="",
                    help="local path to the PEM encoded ssl cert")
     p.add_argument("--ssl-file-key", "-sfk", default="",
                    help="local path to the PEM encoded ssl private key")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     default_config = GenerationConfig(
         voice=args.voice, temperature=args.temperature, top_k=args.topk,
@@ -438,6 +489,8 @@ def main(argv=None):
                         request_timeout=args.request_timeout, device=args.device,
                         data_parallel=args.data_parallel,
                         tensor_parallel=args.tensor_parallel)
+    if args.warmup:
+        warmup(state, default_config)
     server = make_server(state, args.host, args.port)
     scheme = wrap_ssl(server, args.ssl_file_cert, args.ssl_file_key)
     print(f"tts-server (torch, {args.device}) listening on {scheme}://{args.host}:"

@@ -9,16 +9,25 @@ the hand-written kernels of `ops/qmatmul.py`; single-token attention runs
 the flash-decode kernel of `ops/attention.py` over a head-major bf16 (or
 int8) KV cache.
 
-Decode is a host loop, with the JAX runner's routes: sampled requests take
-the sequential loop of eager steps (the position stays on the device as an
-int32 tensor; each token is read back one step behind), greedy ones the
-speculative loop, which drafts by prompt lookup on the host
-(`ops.spec.ngram_drafts`), verifies 8 tokens in one forward at the live
-position and accepts the agreeing prefix, with one read of the window's
-argmaxes per forward.  `generate_stream` resumes either loop in 70-token
-chunks and decodes SNAC windows held RECEPTIVE_FRAMES behind the head.
-The cache is reused unzeroed: a forward reads only the slots it or an
-earlier one of its request wrote.
+Decode has the JAX runner's routes: sampled requests take the sequential
+loop, greedy ones the speculative loop.  A sequential step is one
+`DecodeGraph`, the counterpart of the JAX package's jitted
+`orpheus_decode_step`: the body at T = 1, the head and the sampler over
+static device buffers (the token, the int32 position advanced in place,
+the sampler state, the sampling values as 0-d tensors), captured on the
+card as one CUDA graph per KV cache and static (top_k, do_sample,
+use_top_p) and replayed once per step, as JAX dispatches its compiled
+step; the host reads each token back one step behind.  The speculative
+loop drafts by prompt lookup on the host (`ops.spec.ngram_drafts`),
+verifies 8 tokens in one forward at the live position and accepts the
+agreeing prefix, with one read of the window's argmaxes per forward.
+`generate_stream` resumes either loop in 70-token chunks and decodes SNAC
+windows held RECEPTIVE_FRAMES behind the head.  The cache is reused
+unzeroed: a forward reads only the slots it or an earlier one of its
+request wrote.  Eager steps, not captured, remain for the tensor-parallel
+runner (its step spans shards), for a runner whose `decode_route` a
+caller sets to "eager", and on the CPU, where the same step runs as plain
+calls.
 
 Tensor parallelism (`make_tp_context`, the runner's `mesh=`) cuts the
 linears over a ("tp",) mesh (`parallel/mesh.py`), as the JAX package's
@@ -27,12 +36,14 @@ rows (their partial products added on the lead device), and the KV cache
 by KV heads, each shard running the same kernels on its slice
 (`_tp_qlinear`, `_attend_cache`).
 
-Not ported: the prompt buckets (prefill runs the exact prompt length), the
-AOT export cache, and, of tensor parallelism, the `_TP_MESHES` registry
-with its `jax.clear_caches` (the params carry their shards here) and the
-rule that turns flash and kv_quant off when a shard holds fewer than 2 KV
-heads (single-row DMA stripes are illegal in Mosaic, the TPU kernel
-compiler; `flash_decode` has no such limit).
+Not ported: the prompt buckets (prefill runs the exact prompt length, and
+eagerly), the AOT export cache, the JAX loop's on-device `lax.while_loop`
+(the host replays one step per token and checks the stop token), and, of
+tensor parallelism, the `_TP_MESHES` registry with its `jax.clear_caches`
+(the params carry their shards here) and the rule that turns flash and
+kv_quant off when a shard holds fewer than 2 KV heads (single-row DMA
+stripes are illegal in Mosaic, the TPU kernel compiler; `flash_decode` has
+no such limit).
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ from tts_tpu_torch.codecs.snac import SNACDecoder, params_from_jax  # noqa: F401
 from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
 from tts_tpu_torch.models.registry import register_loader
 from tts_tpu_torch.ops.attention import S_CHUNK, arrival_counters, flash_decode, quantize_kv
-from tts_tpu_torch.ops.qmatmul import linear, linear_format, pack_q4_weight, pack_q8_weight
+from tts_tpu_torch.ops.qmatmul import (linear, linear_format, pack_q4_weight, pack_q8_weight,
+                                       qgemm_int4, qgemm_int8, qgemv_int4, qgemv_int8)
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_drafts, spec_enabled
 from tts_tpu_torch.parallel.mesh import Shards, named, place, replicated, tree_map
@@ -68,6 +80,9 @@ AUDIO_TOKEN_OFFSET = 128266
 # decode steps the host keeps enqueued past the newest token it has read (the
 # stop check): at most this many steps run, and are discarded, after a stop
 _LOOKAHEAD = 1
+# the kernel wrappers whose `.launches` a graph replay adds to (what the
+# capture launched: a replay calls no wrapper)
+_KERNELS = (qgemv_int8, qgemm_int8, qgemv_int4, qgemm_int4, flash_decode)
 
 
 @dataclass(frozen=True)
@@ -514,52 +529,167 @@ def orpheus_decode_step(params: dict, cfg: OrpheusConfig, token: torch.Tensor,
     return _head_logits(x[0], params, cfg)
 
 
+class DecodeGraph:
+    """One sequential decode step over static device buffers: the
+    counterpart of the JAX package's jitted `orpheus_decode_step` (body at
+    T = 1, head and `sample_tokens`), and keyed as its jit is: one per KV
+    cache and static (top_k, do_sample, use_top_p).  `load` fills the
+    buffers in place before a request or a chunk: `token` [1], `pos` [1]
+    (each step advances it in place), the sampler state `last` / `count`
+    [1] and the 0-d f32 temperature, top_p and repetition penalty, which
+    the sampler reads as tensors, so a later request's values are the ones
+    a replay uses.  `buf` is [token, last, count] after the latest step.
+
+    With `capture` (a card only) the first `run` is that request's step run
+    eagerly on a side stream (it meets whatever a first call initializes),
+    then the step is captured into one CUDA graph, under the caller's
+    serialization of the runner (the server's runner lock); every later
+    `run` replays it: one host call for 28 layers of kernels, the head and
+    the sampler.  `generator` is registered with the graph, so a replay
+    draws from its state at that moment and advances it by what the
+    captured draw consumed, as an eager step would: a runner reseeds it per
+    request.  A replay adds what the capture launched to each kernel
+    wrapper's `.launches`, so the counts stay what the card ran.  A failed
+    capture raises TTSError.  Without `capture` `run` calls the same step:
+    eager launches on the card, plain calls on the CPU."""
+
+    def __init__(self, params: dict, cfg: OrpheusConfig, cache, generator: torch.Generator | None,
+                 device, *, top_k: int = 0, do_sample: bool = True, use_top_p: bool = True,
+                 capture: bool = False):
+        device = torch.device(device)
+        if capture and device.type != "cuda":
+            raise ValueError(f"DecodeGraph: a CUDA graph is captured on a card, not on {device}")
+        self.params, self.cfg, self.cache, self.generator = params, cfg, cache, generator
+        self.top_k, self.do_sample, self.use_top_p = top_k, do_sample, use_top_p
+        self.capture = capture
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self._launches: list = []
+        with torch.inference_mode():
+            self.buf = torch.zeros(3, dtype=torch.int32, device=device)
+            self.pos = torch.zeros(1, dtype=torch.int32, device=device)
+            self.values = torch.ones(3, dtype=torch.float32, device=device)
+        self.token = self.buf[0:1]
+        self.state = {"last": self.buf[1:2], "count": self.buf[2:3]}
+
+    @property
+    def route(self) -> str:
+        return "graph" if self.capture else "eager"
+
+    @property
+    def key(self) -> tuple:
+        return (self.top_k, self.do_sample, self.use_top_p)
+
+    def load(self, token: torch.Tensor, pos: int, state: dict, *, temperature: float = 1.0,
+             top_p: float = 1.0, repetition_penalty: float = 1.0):
+        """Set the buffers for the next step: device copies and fills, no
+        host synchronization."""
+        with torch.inference_mode():
+            self.token.copy_(token.reshape(1))
+            self.state["last"].copy_(state["last"].reshape(1))
+            self.state["count"].copy_(state["count"].reshape(1))
+            self.pos.fill_(pos)
+            for i, v in enumerate((temperature, top_p, repetition_penalty)):
+                self.values[i].fill_(float(v))
+
+    def _step(self):
+        logits = orpheus_decode_step(self.params, self.cfg, self.token, self.pos, self.cache)
+        token, state = sample_tokens(
+            self.generator, logits[None], self.state, temperature=self.values[0],
+            top_k=self.top_k, top_p=self.values[1], repetition_penalty=self.values[2],
+            do_sample=self.do_sample, use_top_p=self.use_top_p)
+        self.pos += 1       # in place: the next step reads it in stream order
+        self.buf.copy_(torch.cat([token, state["last"], state["count"]]))
+
+    def _capture(self):
+        main = torch.cuda.current_stream(self.pos.device)
+        side = torch.cuda.Stream(self.pos.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._step()
+        main.wait_stream(side)
+        before = [k.launches for k in _KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._step()
+        except Exception as e:
+            raise TTSError(f"orpheus: capturing the decode step {self.key} failed: "
+                           f"{type(e).__name__}: {e}") from e
+        finally:
+            captured = [k.launches - b for k, b in zip(_KERNELS, before)]
+            for k, b in zip(_KERNELS, before):
+                k.launches = b          # the capture launched nothing on the card
+        self._launches = [(k, n) for k, n in zip(_KERNELS, captured) if n]
+        self.graph = graph
+
+    def run(self):
+        """One decode step: a replay, or the first step and the capture, or
+        an eager step."""
+        with torch.inference_mode():
+            if self.graph is not None:
+                self.graph.replay()
+                for k, n in self._launches:
+                    k.launches += n
+            elif self.capture:
+                self._capture()
+            else:
+                self._step()
+
+
 def orpheus_decode_loop(params: dict, cfg: OrpheusConfig, first_token: torch.Tensor,
                         start_pos: int, limit: int, cache: dict,
                         generator: torch.Generator | None, sampler_state: dict, *,
                         temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
                         repetition_penalty: float = 1.0, do_sample: bool = True,
-                        use_top_p: bool = True):
+                        use_top_p: bool = True, step: DecodeGraph | None = None):
     """Sequential decode of up to `limit` tokens after `first_token` [1],
     stopping at (and including) the stop token, as the JAX loop does.
     Returns (tokens list[int], sampler_state after the last token).
 
-    Each sampled token is copied to pinned host memory behind an event, and
-    the host reads it once `_LOOKAHEAD` later steps are enqueued: the card
-    keeps working while the host checks for the stop token."""
+    `step` makes each step (`step.run()`): a runner's `DecodeGraph` of this
+    key, whose `generator` this is; None makes an uncaptured one for this
+    call (eager steps).  After each step its [token, last, count] row is
+    copied to pinned host memory behind an event, and the host reads it
+    once `_LOOKAHEAD` later steps are enqueued: the card keeps working
+    while the host checks for the stop token."""
     out: list[int] = []
     if limit <= 0 or int(first_token[0]) == cfg.stopping_token_id:
         return out, sampler_state
     device = first_token.device
+    if step is None:
+        step = DecodeGraph(params, cfg, cache, generator, device, top_k=top_k,
+                           do_sample=do_sample, use_top_p=use_top_p)
+    elif step.key != (top_k, do_sample, use_top_p) or step.generator is not generator:
+        raise ValueError(f"orpheus_decode_loop: the step is keyed {step.key} on its own "
+                         f"generator, not {(top_k, do_sample, use_top_p)} on this one")
+    step.load(first_token, start_pos, sampler_state, temperature=temperature, top_p=top_p,
+              repetition_penalty=repetition_penalty)
     cuda = device.type == "cuda"
-    host = torch.empty(limit, dtype=torch.int32, pin_memory=cuda)
-    pending: collections.deque = collections.deque()   # (event, state) per unread step
-    token = first_token
-    pos = torch.tensor([start_pos], dtype=torch.int32, device=device)
+    host = torch.empty((limit, 3), dtype=torch.int32, pin_memory=cuda)
+    pending: collections.deque = collections.deque()   # an event per unread step
     enqueued = 0
     while len(out) < limit:
         if enqueued < limit:
-            logits = orpheus_decode_step(params, cfg, token, pos, cache)
-            token, sampler_state = sample_tokens(
-                generator, logits[None], sampler_state, temperature=temperature,
-                top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty,
-                do_sample=do_sample, use_top_p=use_top_p)
-            pos += 1       # in place: the enqueued steps read it in stream order
-            host[enqueued:enqueued + 1].copy_(token, non_blocking=cuda)
+            step.run()
+            host[enqueued].copy_(step.buf, non_blocking=cuda)
             event = torch.cuda.Event() if cuda else None
             if event is not None:
                 event.record()
-            pending.append((event, sampler_state))
+            pending.append(event)
             enqueued += 1
             if len(pending) <= _LOOKAHEAD and enqueued < limit:
                 continue
-        event, state = pending.popleft()
+        event = pending.popleft()
         if event is not None:
             event.synchronize()
-        out.append(int(host[len(out)]))
+        out.append(int(host[len(out), 0]))
         if out[-1] == cfg.stopping_token_id:
-            return out, state
-    return out, sampler_state
+            break
+    last, count = host[len(out) - 1, 1:].tolist()
+    return out, {"last": torch.tensor([last], dtype=torch.int32, device=device),
+                 "count": torch.tensor([count], dtype=torch.int32, device=device)}
 
 
 def orpheus_decode_loop_spec_resume(params: dict, cfg: OrpheusConfig, token: int,
@@ -663,7 +793,14 @@ class OrpheusRunner(TTSRunner):
         """`device` defaults to the device the params live on (the card,
         where the loader's default put them).  With a ("tp",) `mesh` the
         runner is tensor-parallel over it (`make_tp_context`, whose cfg it
-        keeps) and lives on the mesh's lead device."""
+        keeps) and lives on the mesh's lead device.
+
+        `decode_route` is how sequential steps run: "graph" (a captured
+        `DecodeGraph` per key, replayed) for an unsharded runner on a card,
+        "eager" for the tensor-parallel runner and on the CPU; a caller may
+        set "eager" on the card to compare the two.  The runner owns one
+        generator on its device, reseeded per request, which its graphs
+        register."""
         self.mesh = mesh
         self._cache = None
         if mesh is not None:
@@ -679,6 +816,9 @@ class OrpheusRunner(TTSRunner):
         self.capture_trace = False
         self.last_trace: dict = {}
         self.load_timings: dict = {}
+        self.decode_route = "graph" if self.device.type == "cuda" and mesh is None else "eager"
+        self._generator: torch.Generator | None = None     # made at the first request
+        self._steps: dict = {}
 
     def list_voices(self):
         return list(ORPHEUS_VOICES)
@@ -700,20 +840,37 @@ class OrpheusRunner(TTSRunner):
                     use_top_p=config.top_p < 1.0)
 
     def _prefill(self, ids: list[int], config: GenerationConfig):
-        """Prompt prefill and the first token; returns (prefill logits,
-        first token [1], generator, sampler state, max_steps)."""
+        """Prompt prefill and the first token, drawn from the runner's
+        generator reseeded for this request; returns (prefill logits, first
+        token [1], generator, sampler state, max_steps)."""
         cfg = self.cfg
         if self._cache is None:
             self._cache = init_kv_cache(cfg, self.device)
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
         logits = orpheus_prefill(self.params, cfg, torch.tensor(ids, device=self.device),
                                  self._cache)
-        generator = torch.Generator(device=self.device)
+        generator = self._generator
         generator.manual_seed(config.seed if config.seed is not None
                               else np.random.randint(0, 2**31 - 1))
         first, state = sample_tokens(generator, logits[None], init_state(1, self.device),
                                      **self._sample_kw(config))
         max_steps = min(config.max_tokens or cfg.max_generation_size, cfg.max_generation_size)
         return logits, first, generator, state, max_steps
+
+    def _decode_step(self, config: GenerationConfig) -> DecodeGraph:
+        """The `DecodeGraph` of this request's key on `decode_route`, made
+        (and on the "graph" route captured at its first step) once per
+        KV cache and params."""
+        kw = self._sample_kw(config)
+        key = (self.decode_route, kw["top_k"], kw["do_sample"], kw["use_top_p"])
+        step = self._steps.get(key)
+        if step is None or step.cache is not self._cache or step.params is not self.params:
+            step = self._steps[key] = DecodeGraph(
+                self.params, self.cfg, self._cache, self._generator, self.device,
+                top_k=key[1], do_sample=key[2], use_top_p=key[3],
+                capture=self.decode_route == "graph")
+        return step
 
     def generate_stream(self, text: str, config: GenerationConfig | None = None,
                         chunk_tokens: int = 70):
@@ -751,6 +908,7 @@ class OrpheusRunner(TTSRunner):
                     token = torch.tensor([outputs[-1]], dtype=torch.int32, device=self.device)
                     new, state = orpheus_decode_loop(self.params, cfg, token, pos, budget,
                                                      self._cache, generator, state,
+                                                     step=self._decode_step(config),
                                                      **self._sample_kw(config))
             outputs.extend(new)
             pos += len(new)
@@ -779,11 +937,14 @@ class OrpheusRunner(TTSRunner):
             _sync(self.device)
             t_prefill = time.perf_counter()
             if spec_enabled(config):
+                route = "spec"
                 rest = orpheus_decode_loop_spec(self.params, cfg, int(first[0]), len(ids),
                                                 max_steps - 1, self._cache)
             else:
+                step = self._decode_step(config)
+                route = step.route
                 rest, _ = orpheus_decode_loop(self.params, cfg, first, len(ids), max_steps - 1,
-                                              self._cache, generator, state,
+                                              self._cache, generator, state, step=step,
                                               **self._sample_kw(config))
         outputs = [int(first[0])] + rest
         t_decode = time.perf_counter()
@@ -815,6 +976,7 @@ class OrpheusRunner(TTSRunner):
                      "prefill_ms": (t_prefill - t0) * 1e3,
                      "decode_ms": (t_decode - t_prefill) * 1e3,
                      "decode_steps": len(outputs),
+                     "decode_route": route,
                      "codec_ms": (t_end - t_decode) * 1e3})
 
 

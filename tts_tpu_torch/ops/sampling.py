@@ -7,6 +7,13 @@ device, so a seeded sampled request is reproducible within this package but
 does not give the tokens `jax.random.categorical` gives for the same seed.
 Greedy decoding (`do_sample=False`) is the argmax, identical in both.
 
+As in JAX, temperature, top_p and repetition_penalty may each be a float or
+a 0-d float32 tensor on the logits' device (JAX's traced scalars), so one
+captured CUDA graph of a decode step serves any values: the graph reads the
+tensors at replay, where a float would be a constant baked in at capture.
+top_k, do_sample and use_top_p are static.  A 0-d CPU tensor gives the
+float's bits.
+
 State is a dict {"last": int32 [H], "count": int32 [H]}.
 """
 
@@ -23,14 +30,19 @@ def init_state(n_heads: int, device=None) -> dict:
             "count": torch.zeros((n_heads,), dtype=torch.int32, device=device)}
 
 
-def filtered_probs(logits: torch.Tensor, state: dict, *, temperature: float = 1.0,
-                   top_k: int = 0, top_p: float = 1.0, repetition_penalty: float = 1.0,
+Scalar = float | torch.Tensor
+
+
+def filtered_probs(logits: torch.Tensor, state: dict, *, temperature: Scalar = 1.0,
+                   top_k: int = 0, top_p: Scalar = 1.0, repetition_penalty: Scalar = 1.0,
                    use_top_p: bool = True) -> torch.Tensor:
     """logits [H, V] -> the post-filter distribution [H, V] that
     `sample_tokens` draws from."""
     H, V = logits.shape
     logits = logits.float()
-    pen = torch.pow(float(repetition_penalty), state["count"].float())     # [H]
+    if not isinstance(repetition_penalty, torch.Tensor):
+        repetition_penalty = float(repetition_penalty)
+    pen = torch.pow(repetition_penalty, state["count"].float())     # [H]
     onehot_last = (torch.arange(V, device=logits.device)[None, :]
                    == state["last"][:, None].long()).float()
     logits = logits * (1.0 + onehot_last * (1.0 / pen - 1.0)[:, None])
@@ -58,8 +70,8 @@ def filtered_probs(logits: torch.Tensor, state: dict, *, temperature: float = 1.
 
 
 def sample_tokens(generator: torch.Generator | None, logits: torch.Tensor, state: dict, *,
-                  temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
-                  repetition_penalty: float = 1.0, do_sample: bool = True,
+                  temperature: Scalar = 1.0, top_k: int = 0, top_p: Scalar = 1.0,
+                  repetition_penalty: Scalar = 1.0, do_sample: bool = True,
                   use_top_p: bool = True):
     """logits [H, V] -> (tokens [H] int32, new_state), all on the device.
     A sampled draw is Gumbel-max over log(probs) with uniforms from
