@@ -72,29 +72,42 @@ Phases (any failure exits non-zero, before the final line):
      request (device-busy share, top kernels); the five kernels' launch
      counts must stay 0 over the served requests
   7. Parler-TTS mini v1, which runs the four matmul kernels and not
-     flash_decode: tiny Q8_0 and Q4_0 models' CUDA forwards (8 GEMV steps,
-     one 8-row GEMM verify) and DAC against the CPU; then seeded random
+     flash_decode: tiny Q8_0 and Q4_0 models' CUDA forwards (8 GEMV steps
+     at a device position, one 8-row GEMM verify) and DAC against the CPU,
+     and their sampled and greedy rows on the graph route (one captured
+     ParlerStep per key) equal to the eager route's; then seeded random
      full-width Q8_0 and Q4_0 GGUFs and a flan-t5-large-width T5 GGUF
      under smoke_models/, each Parler served through the port's server
-     with torch's default math flags: a sampled request, a greedy one (the
-     speculative loop), a PCM stream (TTFA), a /v1/audio/conditional-prompt
-     call and a sampled request on the new encoding, 256 rows each (wall,
-     rows/s, RTF, load s, peak memory); the launch counts must show the
-     int8 pair alone on Q8_0 and the int4 pair alone on Q4_0, 192 GEMVs per
-     sequential row, flash_decode 0; then the greedy bracket: speculative,
-     force_miss and sequential rows/s after one prefill, and where the rows
-     part
+     with torch's default math flags after its warmup() (which must
+     capture the default key's graph): a sampled request, a greedy one
+     (the speculative loop), a PCM stream (TTFA), a
+     /v1/audio/conditional-prompt call and a sampled request on the new
+     encoding, 256 rows each (wall, rows/s, route, RTF, load s, peak
+     memory); the launch counts must show the int8 pair alone on Q8_0 and
+     the int4 pair alone on Q4_0, exactly 192 GEMVs per sequential step (a
+     replay counts what its capture launched), flash_decode 0; then the
+     decode rounds: sampled rows/s of the eager and the graph route in
+     alternating rounds (eager, graph, graph, eager) at one seed, rows
+     equal and launches exact, the graph route faster in every pair, other
+     sampling values on the same graph equal to their eager run, the device
+     ms of one replay; the greedy bracket: speculative, force_miss and
+     sequential (graph) rows/s after one prefill, and where the rows part;
+     and a profiled graph-route request (device busy share)
   8. Dia-1.6B, which runs the format's GEMM alone (the CFG pair makes every
-     decode step M = 2): tiny Q8_0 and Q4_0 models' CUDA forwards (8 steps,
-     one 8-row verify at M = 16), cross-KV and DAC against the CPU; then
+     decode step M = 2): tiny Q8_0 and Q4_0 models' CUDA forwards (8 steps
+     at a device position, one 8-row verify at M = 16), cross-KV and DAC
+     against the CPU, and their sampled and greedy rows on the graph route
+     (one captured DiaStep per key) equal to the eager route's; then
      seeded random full-width Q8_0 and Q4_0 GGUFs under smoke_models/, each
-     served through the port's server with torch's default math flags: a
+     served through the port's server with torch's default math flags
+     after its warmup() (which must capture the default key's graph): a
      sampled request, a greedy one (the speculative loop), a PCM stream
      (TTFA) and a second sampled request, 256 tokens each (wall, steps/s,
-     RTF, load s, peak memory); the launch counts must be exact: the
+     route, RTF, load s, peak memory); the launch counts must be exact: the
      format's GEMM 36 per request (the cross-KV) plus 162 per step and per
      verify window, the GEMVs, flash_decode and the other GEMM 0; then the
-     greedy bracket and one profiled request
+     decode rounds as in phase 7 (steps/s), the greedy bracket and one
+     profiled graph-route request
   9. the apps on the card: a seeded random full-width f32 Parler-TTS mini v1
      quantized to Q4_0 and Q8_0 by `python -m tts_tpu_torch.apps.quantize`
      (the printed counts held to the Parler rule's, host seconds); the cli
@@ -264,6 +277,12 @@ DIA_TINY = dict(enc_layers=2, dec_layers=2, enc_hidden=256, dec_hidden=256, enc_
 # bit apart may round to the neighbouring bf16: one bf16 step of a value is
 # at most 2^-7 of the largest magnitude
 DIA_CROSS_TOL = 2.0 ** -7
+# phases 7-8: a row of Parler or a step of Dia adds one 512-sample DAC frame
+# at 44.1 kHz, so decode keeps up with real time (RTF < 1) from 86.1 a second
+REAL_TIME_RATE = round(44100 / 512, 1)
+# the --warmup of phases 7-8's in-process servers: the cap of its three
+# prompts and first chunk (random heads never stop)
+AR_WARM_TOKENS = 48
 ORPHEUS_BRACKET_TOKENS = 70        # phase 5's greedy bracket
 # phase 5's --warmup: the cap of its three prompts and first chunk on the
 # in-process server (random weights never emit the stop token)
@@ -1423,6 +1442,48 @@ def _parler_logits_along(r, ids, ins, widths):
     return torch.cat(out).float()
 
 
+def tiny_graph_vs_eager(r, model: str, text: str):
+    """A tiny Parler's or Dia's cuda runner decodes sampled and greedy
+    (sequential: TTS_TPU_NO_SPEC set) requests on the graph route and on
+    the eager route at one seed: the rows must be equal; a second graph
+    request replays the first one's capture."""
+    from tts_tpu_torch.models import dia as td
+    from tts_tpu_torch.models import parler as tp
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    mod, name = (tp, "parler_decode_loop") if model == "parler" else (td, "dia_decode_loop")
+    seen = []
+    loop = getattr(mod, name)
+
+    def recording(*args, **kw):
+        out = loop(*args, **kw)
+        seen.append(out[0])
+        return out
+
+    setattr(mod, name, recording)
+    os.environ["TTS_TPU_NO_SPEC"] = "1"
+    try:
+        for sample in (True, False):
+            config = GenerationConfig(seed=7, top_k=50, max_tokens=40, sample=sample)
+            rows = {}
+            for route in ("eager", "graph", "graph"):
+                r.decode_route = route
+                check(r.generate(text, config).timings["decode_route"] == route,
+                      f"tiny {model}: not the {route} route")
+                rows.setdefault(route, []).append(seen[-1])
+            check(all(np.array_equal(g, rows["eager"][0]) for g in rows["graph"]),
+                  f"tiny {model} ({'sampled' if sample else 'greedy'}): the graph route's rows "
+                  f"differ from the eager route's at one seed")
+    finally:
+        os.environ.pop("TTS_TPU_NO_SPEC")
+        setattr(mod, name, loop)
+        r.decode_route = "graph"
+    captured = [k for k, v in r._steps.items() if v.graph is not None]
+    check(len(captured) == 2, f"tiny {model}: graphs captured {captured}")
+    print(f"tiny {model} graph route: sampled and greedy rows ({len(seen[-1])} each) equal to the "
+          f"eager route's at one seed, captured {captured}")
+
+
 def parler_tiny_cuda_vs_cpu(qtype: str):
     """A 2-layer hidden-256 Parler with `qtype` linears (every decoder linear
     quantized, the cross-attention's too): the prompt prefill, 8
@@ -1451,6 +1512,8 @@ def parler_tiny_cuda_vs_cpu(qtype: str):
         ids = r.tokenizer.tokenize("hello world") + [r.tokenizer.eos_token]
         logits[dev] = _parler_logits_along(r, ids, _staircase(r.cfg, forced), [1] * 8 + [8]).cpu()
         audio[dev] = r.dac.decode(codes)
+        if dev == "cuda":
+            tiny_graph_vs_eager(r, "parler", "hello world")
     a, rel = rel_err(logits["cuda"], logits["cpu"])
     same = (logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1)).float().mean().item()
     dac = float(np.abs(audio["cuda"] - audio["cpu"]).max())
@@ -1492,10 +1555,169 @@ def _first_part(a, b) -> int:
     return int(diff[0]) if len(diff) else n
 
 
+def ar_forwards(module, body: str, step_cls):
+    """Count Parler or Dia forwards by kind in one Counter: "step" from
+    `step_cls.run` (one decode step on the card: a graph replay, the first
+    step and its capture, or an eager step; the body a step runs is not
+    counted again), "verify" from `module.body` at T > 1 (the speculative
+    verify window); returns (counter, restore)."""
+    import collections
+
+    calls: collections.Counter = collections.Counter()
+    fn, run = getattr(module, body), step_cls.run
+
+    def counted_body(params, cfg, rows, *args, **kw):
+        if rows.shape[0] > 1:
+            calls["verify"] += 1
+        return fn(params, cfg, rows, *args, **kw)
+
+    def counted_run(self):
+        calls["step"] += 1
+        return run(self)
+
+    setattr(module, body, counted_body)
+    step_cls.run = counted_run
+
+    def restore():
+        setattr(module, body, fn)
+        step_cls.run = run
+    return calls, restore
+
+
+def ar_warmup(state, runner, key: tuple) -> float:
+    """The server's warmup() on a Parler or Dia default model, its prompts
+    capped at AR_WARM_TOKENS: it must capture the decode graph of the
+    default sampling key (`key` in runner._steps).  Returns its seconds."""
+    from tts_tpu_torch.apps.server import warmup
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    t0 = time.perf_counter()
+    check(warmup(state, GenerationConfig(top_k=50, max_tokens=AR_WARM_TOKENS)), "--warmup failed")
+    secs = time.perf_counter() - t0
+    step = runner._steps.get(key)
+    check(step is not None and step.graph is not None,
+          f"--warmup captured no decode graph of the default key {key}: {list(runner._steps)}")
+    print(f"--warmup (the server's warmup(): its three prompts and a streamed first chunk, "
+          f"{AR_WARM_TOKENS} tokens each): {secs:.1f} s; decode steps captured: "
+          f"{[k for k, v in runner._steps.items() if v.graph is not None]}")
+    return secs
+
+
+def print_profile(label: str, what: str, prof: dict):
+    """One line of a profile_request result: wall, device busy share, top
+    kernels."""
+    print(f"[{label}] profiled graph-route request ({what}): wall {prof['wall_ms']:.1f} ms "
+          f"(unprofiled {prof['unprofiled_wall_ms']:.1f}), device busy "
+          f"{prof['device_busy_ms']:.1f} ms = {prof['device_busy_share_of_unprofiled_wall']:.1%} "
+          f"of the unprofiled wall, {prof['device_kernels']} device kernels; top: "
+          + "; ".join(f"{k['name'][:60]} x{k['calls']} {k['device_ms']:.1f} ms"
+                      for k in prof["top_kernels"][:5]))
+
+
+def ar_decode_rounds(runner, model: str, qtype: str) -> dict:
+    """Phases 7-8's decode rounds: sampled rows/s (Parler) or steps/s (Dia)
+    of the eager and the graph route in alternating rounds (eager, graph,
+    graph, eager) of one request of PARLER_MAX_TOKENS rows or DIA_MAX_TOKENS
+    tokens through runner.generate at one seed, every round's rows equal and
+    the launches exact (Parler: the format's GEMV 192 per step and its GEMM
+    192 per prefill; Dia: the format's GEMM 162 per step and 36 per
+    encode; everything else 0); then a request with another temperature
+    and penalty on the same key (the same captured graph), graph then
+    eager: equal to each other, not to the first config's; and the device
+    ms of one graph replay (CUDA events over REPLAYS replays)."""
+    import dataclasses
+
+    import torch
+
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    if model == "parler":
+        from tts_tpu_torch.models import parler as mod
+        loop_name, body, cls, unit = "parler_decode_loop", "_rows_logits", mod.ParlerStep, "rows"
+        text, n_tok, per = PARLER_TEXTS[0], PARLER_MAX_TOKENS, PARLER_LAYERS * PARLER_LINEARS
+    else:
+        from tts_tpu_torch.models import dia as mod
+        loop_name, body, cls, unit = "dia_decode_loop", "_dia_rows", mod.DiaStep, "steps"
+        text, n_tok, per = DIA_TEXTS[0], DIA_MAX_TOKENS, DIA_LAYERS * DIA_LINEARS
+    a = GenerationConfig(top_k=50, seed=11, max_tokens=n_tok)
+    b = dataclasses.replace(a, temperature=0.7, repetition_penalty=1.2)
+    seen = []
+    loop = getattr(mod, loop_name)
+
+    def recording(*args, **kw):
+        out = loop(*args, **kw)
+        seen.append(out[0])
+        return out
+
+    setattr(mod, loop_name, recording)
+    forwards, restore = ar_forwards(mod, body, cls)
+    for kernel in launch_counters().values():
+        kernel.launches = 0
+    rates: dict = {"eager": [], "graph": []}
+    rows: dict = {}
+    rounds = (("eager", a), ("graph", a), ("graph", a), ("eager", a), ("graph", b), ("eager", b))
+    try:
+        for route, config in rounds:
+            runner.decode_route = route
+            resp = runner.generate(text, config)
+            check(resp.timings["decode_route"] == route,
+                  f"rounds: a {route} request took {resp.timings['decode_route']}")
+            rows.setdefault((route, config is a), []).append(seen[-1])
+            rate = len(seen[-1]) / (resp.timings["decode_ms"] / 1e3)
+            if config is a:
+                rates[route].append(rate)
+            print(f"[{model} {qtype}] round {route:5s} temperature {config.temperature} penalty "
+                  f"{config.repetition_penalty}: {len(seen[-1])} {unit} decoded at "
+                  f"{rate:6.1f} {unit}/s, wall {resp.timings['decode_ms']:8.1f} ms")
+    finally:
+        counts = _kernel_counts()
+        restore()
+        setattr(mod, loop_name, loop)
+        runner.decode_route = "graph"
+    gemv, gemm = PATH_KERNELS[qtype]
+    want = dict.fromkeys(counts, 0)
+    if model == "parler":
+        want.update({gemv: per * forwards["step"], gemm: per * len(rounds)})
+    else:
+        want[gemm] = per * forwards["step"] + 2 * DIA_LAYERS * len(rounds)
+    print(f"[{model} {qtype}] launches over the rounds (forwards {dict(forwards)}): {counts}")
+    check(counts == want and not forwards["verify"], f"rounds: launches {counts}, not {want}")
+    first = rows[("eager", True)][0]
+    check(all(np.array_equal(r, first) for k, rs in rows.items() if k[1] for r in rs),
+          f"[{model} {qtype}] the graph and eager rounds' rows differ at one seed")
+    check(np.array_equal(rows[("graph", False)][0], rows[("eager", False)][0]),
+          f"[{model} {qtype}] other sampling values: graph and eager rows differ")
+    check(not np.array_equal(rows[("graph", False)][0], first),
+          f"[{model} {qtype}] other sampling values gave the first config's rows")
+    step = runner._decode_step(a, runner.cross_kv) if model == "parler" else runner._decode_step(a)
+    check(step.graph is not None, "no captured graph after the rounds")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        start.record()
+        for _ in range(REPLAYS):
+            step.graph.replay()
+        end.record()
+        end.synchronize()
+    replay_ms = start.elapsed_time(end) / REPLAYS
+    graph_rate = sum(rates["graph"]) / len(rates["graph"])
+    print(f"[{model} {qtype}] sampled decode {unit}/s in rounds eager, graph, graph, eager: "
+          f"{rates['eager'][0]:.1f}, {rates['graph'][0]:.1f}, {rates['graph'][1]:.1f}, "
+          f"{rates['eager'][1]:.1f}; rows equal at one seed in all four; other values "
+          f"(temperature 0.7, penalty 1.2) on the same graph equal their eager run")
+    print(f"[{model} {qtype}] one graph replay: {replay_ms:.3f} ms of device time (CUDA events, "
+          f"{REPLAYS} replays) -> {1e3 / replay_ms:.1f} {unit}/s bound; the graph rounds' decode "
+          f"keeps the device busy ~{graph_rate * replay_ms / 1e3:.1%} of their wall; real time "
+          f"needs {REAL_TIME_RATE} {unit}/s")
+    check(min(rates["graph"]) > max(rates["eager"]),
+          f"[{model} {qtype}] the graph route is not faster than eager in every pair: {rates}")
+    return {f"{unit}_per_s": rates, "replay_ms": replay_ms, "forwards": dict(forwards)}
+
+
 def parler_bracket(runner, text: str) -> dict:
     """Greedy rows/s of one 256-row request decoded three ways after the
     same prefill: the speculative loop, its force_miss floor (every draft
-    rejected: one row per 8-row forward), and the sequential loop; the
+    rejected: one row per 8-row forward), and the sequential loop (on the
+    runner's captured step of the greedy key); the
     first row where each parts from the sequential rows and, for the
     speculative loop, the top-2 gap of the sequential path's logits there
     (the tests hold the two equal up to near-ties).  Launches made here are
@@ -1511,13 +1733,15 @@ def parler_bracket(runner, text: str) -> dict:
     rows, rates = {}, {}
     for mode in ("spec", "force_miss", "sequential"):
         with torch.inference_mode():
-            cross, _, state, limit = runner._prefill(ids, config)
+            cross, generator, state, limit = runner._prefill(ids, config)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if mode == "sequential":
                 got, _, _ = tp.parler_decode_loop(runner.params, cfg, len(ids), limit,
-                                                  runner._cache, cross, None, state,
-                                                  tp.init_loop_state(cfg), do_sample=False)
+                                                  runner._cache, cross, generator, state,
+                                                  tp.init_loop_state(cfg),
+                                                  step=runner._decode_step(config, cross),
+                                                  **runner._sample_kw(config))
             else:
                 out, loop, _ = tp.parler_decode_loop_spec_resume(
                     runner.params, cfg, len(ids), limit, runner._cache, cross,
@@ -1557,6 +1781,7 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
     import torch
 
     from tts_tpu_torch.apps.server import ServerState, make_server, stop_workers
+    from tts_tpu_torch.models import parler as tp
     from tts_tpu_torch.runtime.api import GenerationConfig
     from tts_tpu_torch.utils.trace import profile_request
 
@@ -1578,6 +1803,7 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
     print(f"model load: {load_s:.2f} s  " + "  ".join(f"{k} {v:.2f}" for k, v in
                                                      runner.load_timings.items())
           + f"; memory_allocated {(torch.cuda.memory_allocated() - base) / mib:.0f} MiB")
+    warm_s = ar_warmup(state, runner, ("graph", 50, True, False, False))
     torch.cuda.reset_peak_memory_stats()
     responses = []
     generate = runner.generate
@@ -1588,13 +1814,15 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
         return resp
 
     runner.generate = recording_generate
+    forwards, restore = ar_forwards(tp, "_rows_logits", tp.ParlerStep)
     srv = make_server(state, port=0)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     port = srv.server_address[1]
     counters = launch_counters()
     for kernel in counters.values():
         kernel.launches = 0
-    summary = {"load_s": load_s, "load_timings": runner.load_timings, "requests": {}}
+    summary = {"load_s": load_s, "load_timings": runner.load_timings, "warmup_s": warm_s,
+               "requests": {}}
 
     def speech(kind, payload):
         t = time.perf_counter()
@@ -1607,7 +1835,10 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
             n = wf.getnframes()
             check(wf.getframerate() == 44100, f"{kind}: rate {wf.getframerate()}")
         steps, frames = resp.timings["decode_steps"], resp.timings["frames"]
+        route = resp.timings["decode_route"]
         check(steps == PARLER_MAX_TOKENS, f"{kind}: {steps} rows, not {PARLER_MAX_TOKENS}")
+        check(route == ("spec" if payload.get("sample") is False else "graph"),
+              f"{kind}: decode route {route}")
         check(0 < n == len(resp.audio) == 512 * frames, f"{kind}: wav {n} samples, audio "
               f"{len(resp.audio)}, {frames} frames")
         check(bool(np.isfinite(resp.audio).all()), f"{kind}: non-finite audio")
@@ -1621,8 +1852,8 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
              "frames": frames, "audio_s": n / 44100, "rtf": wall / (n / 44100)}
         print(f"{kind:15s} wall {wall * 1e3:8.1f} ms  prefill {m['prompt_tokens']} tok in "
               f"{m['prefill_ms']:6.1f} ms  decode {steps} rows in {dec_s * 1e3:8.1f} ms = "
-              f"{m['decode_rows_per_s']:6.1f} rows/s  codec {m['codec_ms']:6.1f} ms  {frames} "
-              f"frames, audio {m['audio_s']:.3f} s  RTF {m['rtf']:.3f}")
+              f"{m['decode_rows_per_s']:6.1f} rows/s ({route})  codec {m['codec_ms']:6.1f} ms  "
+              f"{frames} frames, audio {m['audio_s']:.3f} s  RTF {m['rtf']:.3f}")
         summary["requests"][kind] = m
         return resp
 
@@ -1669,16 +1900,18 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
         summary["max_memory_allocated_mib"] = (torch.cuda.max_memory_allocated() - base) / mib
     finally:
         counts = {k: c.launches for k, c in counters.items()}
+        restore()
         runner.generate = generate
         srv.shutdown()
         srv.server_close()
         stop_workers(state)
-    print(f"launches over the Parler {qtype} requests: {counts}")
+    print(f"launches over the Parler {qtype} requests (forwards {dict(forwards)}): {counts}")
     sequential = 3 * PARLER_MAX_TOKENS     # rows of the three sampled requests
     per = PARLER_LAYERS * PARLER_LINEARS
     gemv, gemm = PATH_KERNELS[qtype]
-    check(per * sequential <= counts[gemv] <= per * (sequential + 3),
-          f"{gemv} launched {counts[gemv]}, not {per} per sequential row ({sequential} rows)")
+    check(counts[gemv] == per * forwards["step"] and forwards["step"] >= sequential,
+          f"{gemv} launched {counts[gemv]}, not {per} per sequential step ({dict(forwards)}, "
+          f"{sequential} rows)")
     check(counts[gemm] >= per * (4 + PARLER_MAX_TOKENS // 8) + 2 * PARLER_LAYERS,
           f"{gemm} launched {counts[gemm]} < 4 prefills, one greedy request's verify windows "
           f"and one cross-KV precompute")
@@ -1689,10 +1922,12 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
                   f"the Parler {qtype} path launched {other}: {counts}")
     print(f"max_memory_allocated during the requests {summary['max_memory_allocated_mib']:.0f} "
           f"MiB over what was allocated before the load (weights, cache, T5 while encoding)")
+    summary["rounds"] = ar_decode_rounds(runner, "parler", qtype)
     summary["bracket"] = parler_bracket(runner, PARLER_TEXTS[1])
     prof = profile_request(runner, PARLER_TEXTS[0],
                            GenerationConfig(seed=1, top_k=50, max_tokens=PARLER_PROFILE_ROWS),
                            os.path.join(MODEL_DIR, f"parler_{qtype}_profile.json"))
+    print_profile(f"Parler {qtype}", f"{PARLER_PROFILE_ROWS} rows", prof)
     print(json.dumps({f"parler_{qtype}_profile": prof}))
     summary["profile"] = {k: prof[k] for k in ("wall_ms", "unprofiled_wall_ms", "device_busy_ms",
                                                "device_busy_share",
@@ -1774,6 +2009,8 @@ def dia_tiny_cuda_vs_cpu(qtype: str):
         out[dev] = {"logits": torch.cat(logits)[..., :eos + 1].float().cpu(),
                     "masked": torch.cat(logits)[..., eos + 1:].cpu(),
                     "k": cross["k"].cpu(), "v": cross["v"].cpu(), "audio": r.dac.decode(codes)}
+        if dev == "cuda":
+            tiny_graph_vs_eager(r, "dia", DIA_TEXTS[0])
     a, b = out["cuda"], out["cpu"]
     _, rel = rel_err(a["logits"], b["logits"])
     cross = {k: rel_err(a[k], b[k])[1] for k in ("k", "v")}
@@ -1810,8 +2047,8 @@ def dia_models() -> dict:
 def dia_bracket(runner, text: str) -> dict:
     """Greedy steps/s of one DIA_BRACKET_TOKENS request decoded three ways after
     the same encode: the speculative loop, its force_miss floor and the
-    sequential loop; the first row where each parts from the sequential
-    rows.  Launches made here are not counted for the path."""
+    sequential loop (on the runner's captured step of the greedy key); the
+    first row where each parts from the sequential rows.  Launches made here are not counted for the path."""
     import torch
 
     from tts_tpu_torch.models import dia as td
@@ -1823,14 +2060,15 @@ def dia_bracket(runner, text: str) -> dict:
     rows, rates = {}, {}
     for mode in ("spec", "force_miss", "sequential"):
         with torch.inference_mode():
-            cross, _, state = runner._encode(ids, config)
+            cross, generator, state = runner._encode(ids, config)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if mode == "sequential":
                 got, _, _ = td.dia_decode_loop(runner.params, cfg, DIA_BRACKET_TOKENS,
                                                cfg.max_generation_size, runner._cache, cross,
-                                               None, state, td.dia_init_loop_state(cfg),
-                                               do_sample=False)
+                                               generator, state, td.dia_init_loop_state(cfg),
+                                               step=runner._decode_step(config),
+                                               **runner._sample_kw(config))
             else:
                 out, loop = td.dia_decode_loop_spec_resume(
                     runner.params, cfg, DIA_BRACKET_TOKENS, cfg.max_generation_size, runner._cache,
@@ -1885,6 +2123,7 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
     print(f"model load: {load_s:.2f} s  " + "  ".join(f"{k} {v:.2f}" for k, v in
                                                      runner.load_timings.items())
           + f"; memory_allocated {load_mib:.0f} MiB")
+    warm_s = ar_warmup(state, runner, ("graph", 50, True, False))
     torch.cuda.reset_peak_memory_stats()
     responses = []
     generate = runner.generate
@@ -1895,8 +2134,7 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
         return resp
 
     runner.generate = recording_generate
-    forwards, restore_rows = _counting(td, "_dia_rows", lambda p, c, rows, *a: (
-        "step" if rows.shape[0] == 1 else "verify"))
+    forwards, restore_rows = ar_forwards(td, "_dia_rows", td.DiaStep)
     encodes, restore_cross = _counting(td, "dia_cross_kv", lambda *a: "encode")
     srv = make_server(state, port=0)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
@@ -1905,7 +2143,7 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
     for kernel in counters.values():
         kernel.launches = 0
     summary = {"load_s": load_s, "load_timings": runner.load_timings, "load_mib": load_mib,
-               "requests": {}}
+               "warmup_s": warm_s, "requests": {}}
     steps_want = DIA_MAX_TOKENS - 1           # the drain ends one step short of the cap
     frames_want = steps_want - runner.cfg.max_delay
 
@@ -1920,8 +2158,11 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
             n = wf.getnframes()
             check(wf.getframerate() == 44100, f"{kind}: rate {wf.getframerate()}")
         steps, frames = resp.timings["decode_steps"], resp.timings["frames"]
+        route = resp.timings["decode_route"]
         check(steps == steps_want and frames == frames_want,
               f"{kind}: {steps} steps and {frames} frames, not {steps_want} and {frames_want}")
+        check(route == ("spec" if payload.get("sample") is False else "graph"),
+              f"{kind}: decode route {route}")
         check(n == len(resp.audio) == 512 * frames, f"{kind}: wav {n} samples, audio "
               f"{len(resp.audio)}, {frames} frames")
         check(bool(np.isfinite(resp.audio).all()), f"{kind}: non-finite audio")
@@ -1933,7 +2174,7 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
              "frames": frames, "audio_s": n / 44100, "rtf": wall / (n / 44100)}
         print(f"{kind:15s} wall {wall * 1e3:8.1f} ms  encode {m['prompt_bytes']} bytes in "
               f"{m['encode_ms']:6.1f} ms  decode {steps} steps in {dec_s * 1e3:8.1f} ms = "
-              f"{m['decode_steps_per_s']:6.1f} steps/s  codec {m['codec_ms']:6.1f} ms  "
+              f"{m['decode_steps_per_s']:6.1f} steps/s ({route})  codec {m['codec_ms']:6.1f} ms  "
               f"{frames} frames, audio {m['audio_s']:.3f} s  RTF {m['rtf']:.3f}")
         summary["requests"][kind] = m
         return resp
@@ -1985,10 +2226,12 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
     summary["forwards"] = dict(forwards)
     print(f"max_memory_allocated during the requests {summary['max_memory_allocated_mib']:.0f} "
           f"MiB over what was allocated before the load (weights, caches, activations)")
+    summary["rounds"] = ar_decode_rounds(runner, "dia", qtype)
     summary["bracket"] = dia_bracket(runner, DIA_TEXTS[1])
     prof = profile_request(runner, DIA_TEXTS[0],
                            GenerationConfig(seed=1, top_k=50, max_tokens=DIA_PROFILE_TOKENS),
                            os.path.join(MODEL_DIR, f"dia_{qtype}_profile.json"))
+    print_profile(f"Dia {qtype}", f"{DIA_PROFILE_TOKENS - 1} steps", prof)
     print(json.dumps({f"dia_{qtype}_profile": prof}))
     summary["profile"] = {k: prof[k] for k in ("wall_ms", "unprofiled_wall_ms", "device_busy_ms",
                                                "device_busy_share",

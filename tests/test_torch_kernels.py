@@ -611,3 +611,178 @@ def test_orpheus_graph_replays_leave_the_counters_at_zero(cuda, tiny_orpheus):
     assert len(graph[0]) == 700
     assert not runner._cache["counters"].any()
     assert graph[:2] == _decode(runner, "eager", config)[:2]
+
+
+# ---------------------------------------------------------------------------
+# Parler's and Dia's decode steps captured as one CUDA graph each
+# (models/parler.py ParlerStep, models/dia.py DiaStep) against the same steps
+# run eagerly, on tiny random models written by the port's own builders
+# (tests/torch_tiny.py's widths, every decoder linear quantized, a tiny DAC)
+PARLER_TINY = dict(n_layers=2, hidden=256, heads=4, ffn=512, prompt_vocab=64, enc_len=12,
+                   enc_hidden=64, max_ctx=512, max_gen=64)
+DIA_TINY = dict(enc_layers=2, dec_layers=2, enc_hidden=256, dec_hidden=256, enc_heads=4,
+                dec_heads=4, query_heads=2, enc_ffn=512, ffn=512, enc_ctx=128, max_gen=64)
+TINY_DAC = dict(latent=96, decoder_dim=48, channels=(48, 24, 12, 6))
+AR_TEXT = {"parler": "graph or eager", "dia": "[S1] Graph or eager. [S2] Both."}
+
+
+@pytest.fixture(scope="module")
+def tiny_ar(tmp_path_factory):
+    """tiny_ar(model, qtype) -> the tiny Parler's or Dia's path (written
+    once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with -m cuda)")
+    from tts_tpu_torch.convert.builder_codecs import DAC_44KHZ
+    from tts_tpu_torch.convert.builder_dia import DIA_1_6B, write_random_dia
+    from tts_tpu_torch.convert.builder_parler import PARLER_MINI_V1, write_random_parler
+
+    built = {}
+
+    def get(model, qtype):
+        if (model, qtype) not in built:
+            path = tmp_path_factory.mktemp(model) / f"tiny_{qtype}.gguf"
+            write, dims = ((write_random_parler, dict(PARLER_MINI_V1, **PARLER_TINY))
+                           if model == "parler" else (write_random_dia, dict(DIA_1_6B, **DIA_TINY)))
+            built[model, qtype] = str(write(path, seed=0, qtype=qtype,
+                                            dac=dict(DAC_44KHZ, **TINY_DAC), **dims))
+        return built[model, qtype]
+    return get
+
+
+def _ar_decode(runner, route: str, config):
+    """One request's prefill (Parler) or encode (Dia) and sequential decode
+    on `route`, as generate runs them: (rows, sampler state at the end, the
+    step)."""
+    from tts_tpu_torch.models import dia as td
+    from tts_tpu_torch.models import parler as tp
+
+    runner.decode_route = route
+    kw = runner._sample_kw(config)
+    with torch.inference_mode():
+        if runner.architecture == "dia":
+            ids = runner._prompt_ids(AR_TEXT["dia"], config)
+            cross, generator, state = runner._encode(ids, config)
+            step = runner._decode_step(config)
+            rows, state, _ = td.dia_decode_loop(
+                runner.params, runner.cfg, config.max_tokens, runner.cfg.max_generation_size,
+                runner._cache, cross, generator, state, td.dia_init_loop_state(runner.cfg),
+                step=step, **kw)
+        else:
+            ids = runner._prompt_ids(AR_TEXT["parler"])
+            cross, generator, state, max_steps = runner._prefill(ids, config)
+            step = runner._decode_step(config, cross)
+            rows, state, _ = tp.parler_decode_loop(
+                runner.params, runner.cfg, len(ids), max_steps, runner._cache, cross, generator,
+                state, tp.init_loop_state(runner.cfg), step=step, **kw)
+    torch.cuda.synchronize()
+    return rows.tolist(), {k: v.tolist() for k, v in state.items()}, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["parler", "dia"])
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+@pytest.mark.parametrize("sample", [True, False], ids=["sampled", "greedy"])
+def test_ar_graph_route_gives_the_eager_rows(cuda, tiny_ar, model, qtype, sample):
+    """At one seed the captured step (its first request, which captures, and
+    a second, which only replays) emits the eager steps' rows and ends in
+    their sampler state, sampled (top-k 50, the runner's generator
+    registered with the graph) and greedy-sequential."""
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    runner = runner_from_file(tiny_ar(model, qtype), device="cuda")
+    assert runner.decode_route == "graph"
+    config = GenerationConfig(seed=4, top_k=50, max_tokens=48, sample=sample)
+    eager = _ar_decode(runner, "eager", config)
+    first = _ar_decode(runner, "graph", config)
+    second = _ar_decode(runner, "graph", config)
+    assert first[2] is second[2] and first[2].graph is not None
+    assert eager[2].graph is None and eager[2] is not first[2]
+    assert len(first[0]) >= 40
+    assert first[:2] == second[:2] == eager[:2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["parler", "dia"])
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+def test_ar_graph_takes_each_requests_values(cuda, tiny_ar, model, qtype):
+    """A second request with another temperature, top_p and repetition
+    penalty (the same static key: top-k 50, top-p on) replays the graph the
+    first captured and equals its own eager run; with the first request's
+    values baked in it would give the first request's rows."""
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    runner = runner_from_file(tiny_ar(model, qtype), device="cuda")
+    a = GenerationConfig(seed=3, top_k=50, top_p=0.95, max_tokens=40)
+    b = GenerationConfig(seed=3, top_k=50, top_p=0.7, temperature=0.6, repetition_penalty=1.4,
+                         max_tokens=40)
+    first = _ar_decode(runner, "graph", a)
+    second = _ar_decode(runner, "graph", b)
+    assert second[2] is first[2]
+    assert second[:2] == _ar_decode(runner, "eager", b)[:2]
+    assert second[0] != first[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["parler", "dia"])
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+def test_ar_graph_launch_counts_are_exact(cuda, tiny_ar, model, qtype, monkeypatch):
+    """Launch counters count what the card ran: over a first graph request
+    (one eager step, the capture, replays) and a second (replays only),
+    Parler 16 GEMVs per row (8 linears in each of 2 layers; 192 at 24
+    layers) and 16 GEMMs per prefill; Dia 18 GEMMs per step (9 in each of 2
+    layers; 162 at 18) and 4 per request (the cross-KV); the capture itself
+    adds nothing, and flash_decode and the other format's kernels stay at
+    0."""
+    from tts_tpu_torch.models import dia as td
+    from tts_tpu_torch.models import parler as tp
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    cls = tp.ParlerStep if model == "parler" else td.DiaStep
+    steps = []
+    run = cls.run
+    monkeypatch.setattr(cls, "run", lambda self: steps.append(1) or run(self))
+    runner = runner_from_file(tiny_ar(model, qtype), device="cuda")
+    gemv, gemm = ((tq.qgemv_int8, tq.qgemm_int8) if qtype == "Q8_0"
+                  else (tq.qgemv_int4, tq.qgemm_int4))
+    kernels = (tq.qgemv_int8, tq.qgemm_int8, tq.qgemv_int4, tq.qgemm_int4, ta.flash_decode)
+    config = GenerationConfig(seed=1, top_k=50, max_tokens=40)
+    for request in range(2):
+        for k in kernels:
+            k.launches = 0
+        steps.clear()
+        resp = runner.generate(AR_TEXT[model], config)
+        torch.cuda.synchronize()
+        assert resp.timings["decode_route"] == "graph"
+        n = len(steps)
+        assert n >= resp.timings["decode_steps"] > 30
+        want = {k: 0 for k in kernels}
+        if model == "parler":
+            want[gemv], want[gemm] = 16 * n, 16
+        else:
+            want[gemm] = 18 * n + 4
+        assert {k: k.launches for k in kernels} == want
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_ttserror(cuda):
+    """A step that synchronizes with the host cannot be captured: the first
+    run's eager step runs, the capture raises TTSError naming the step, and
+    no launch is counted for it."""
+    from tts_tpu_torch.runtime.api import TTSError
+    from tts_tpu_torch.runtime.step_graph import CapturedStep
+
+    class HostRead(CapturedStep):
+        label = "test"
+        key = ("host read",)
+
+        def _step(self):
+            self.seen = int(torch.ones(1, device=self.device).sum().item())
+
+    step = HostRead(cuda, None, capture=True)
+    with pytest.raises(TTSError, match="test: capturing the decode step"):
+        step.run()
+    assert step.graph is None and step.seen == 1
+    torch.cuda.synchronize()

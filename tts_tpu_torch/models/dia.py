@@ -20,31 +20,38 @@ M = 2, the speculative verify M = 16 and the cross-KV precompute M =
 cross caches and the heads in bf16 (the cross K/V are kept as f32 values
 rounded to bf16, which the attention reads without a cast per step).  Self-
 and cross-attention are plain torch products (no Pallas kernel served them
-on the TPU either); self-attention reads the live prefix of the cache only,
-which computes what the JAX package's -1e9 mask over the whole cache does.
+on the TPU either).  A sequential step (T = 1) runs at a device position
+and reads the whole cache under the JAX package's -1e9 mask, so it has one
+shape at every position; a verify window reads the live prefix only,
+which computes the same function.
 The full-context encoder is kept as the JAX package runs it: the cross K
 past the prompt is zero and the cross-attention has no mask, so the pad
 positions carry weight exp(0) with V from the encoder's pad block, and an
 exact-length encoder would change the output.
 
-Decode is a host loop, as the port's Parler's is.  The sequential CFG loop
-keeps its next input row and drain counter on the device and reads each
-sampled row back one step behind; the speculative greedy loop drafts rows
-(`ops.spec.ngram_draft_rows`), replays the drain along the draft path on
-the host, verifies 8 rows in one forward and recomputes the true evolution
-from the model's own argmaxes, with one read per window.  The loop state
-(next input row, drain counter, position) lives on the host between calls,
-so `generate_stream` resumes either loop chunk by chunk.  The caches are
-reused unzeroed: a forward reads only the positions its request wrote.
+A sequential step is one `DiaStep`, the body of the JAX package's
+`dia_decode_loop`: the CFG pair at the device position, the merge, the
+sampler, the next input row and the EOS drain (its branches on the
+position as device `where`s), over static device buffers, captured on the
+card as one CUDA graph per KV cache, cross-KV buffer and static (top_k,
+do_sample, use_top_p) and replayed once per step; the host reads each
+row back one step behind and stops when the drain ends.  The runner owns
+the cross-KV buffer, which each request's encode fills in place.  The
+speculative greedy loop drafts rows (`ops.spec.ngram_draft_rows`), replays
+the drain along the draft path on the host, verifies 8 rows in one forward
+and recomputes the true evolution from the model's own argmaxes, with one
+read per window.  The loop state (next input row, drain counter, position)
+lives on the host between calls, so `generate_stream` resumes either loop
+chunk by chunk.  The caches are reused unzeroed.
 
 Not ported, because each exists only for the JAX package's compiler: the
-jit and the cache donation, and the DAC frame buckets (the DAC decodes the
+cache donation, the `lax.while_loop` around the step (the host replays the
+step and checks the stop), and the DAC frame buckets (the DAC decodes the
 exact frame count).
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import time
 from dataclasses import dataclass
@@ -57,10 +64,11 @@ from tts_tpu_torch.codecs.dac import DACDecoder
 from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
 from tts_tpu_torch.models.registry import register_loader
 from tts_tpu_torch.ops.qmatmul import apply_linear, load_linear
-from tts_tpu_torch.ops.sampling import init_state, sample_tokens
+from tts_tpu_torch.ops.sampling import init_state
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_draft_rows, spec_enabled
 from tts_tpu_torch.runtime.api import (GenerationConfig, TTSError, TTSResponse, TTSRunner,
                                        card_device)
+from tts_tpu_torch.runtime.step_graph import CapturedStep, device_pos, read_behind
 
 # decode steps the host keeps enqueued past the newest row it has read (the
 # stop check): at most this many steps run, and are discarded, after a stop
@@ -275,43 +283,62 @@ def init_dia_cache(cfg: DiaConfig, device=None) -> dict:
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def _dia_rows(params: dict, cfg: DiaConfig, rows: torch.Tensor, pos: int, cache: dict,
+def _dia_rows(params: dict, cfg: DiaConfig, rows: torch.Tensor, pos, cache: dict,
               cross_kv: dict) -> torch.Tensor:
     """The decoder on input rows [T, 9] (one token per head) at positions
     pos..pos+T-1, the cond and uncond rows together -> the CFG-merged
-    logits [T, 9, vocab] f32, ids past EOS at -inf.  Writes the K/V of
-    those positions and attends causally over the live slots [0, pos + T);
-    T == 1 is a sequential step, T > 1 a verify window."""
+    logits [T, 9, vocab] f32, ids past EOS at -inf.
+
+    T > 1 (a verify window, at an int pos) writes the K/V of its positions
+    and attends causally over the live slots [0, pos + T).  T == 1 (a
+    sequential step) runs at the device position pos (an int32 tensor [1];
+    an int is made one): RoPE is built from it, K/V are written at that
+    slot with index_copy_, and self-attention reads all
+    cfg.max_generation_size slots under the JAX package's additive mask (0
+    where key_pos <= pos, -1e9 past it), so the step has one shape at every
+    position and a captured graph of it serves them all.  A masked key
+    weighs exp(-1e9 - max) = 0 exactly in f32 while its logit is finite,
+    which holds: the cache is zeroed when made and every slot past pos
+    holds K/V an earlier forward wrote from finite activations (a
+    non-finite one would have shown in that forward's own logits)."""
     dec = params["decoder"]
     B, T = 2, rows.shape[0]
     Hq, Hkv, hs = cfg.decoder_attn_heads, cfg.kv_heads, cfg.head_size
     G = Hq // Hkv
-    end = pos + T
     device = rows.device
     heads = torch.arange(cfg.n_output_heads, device=device)
     # a draft id of -1 (force_miss) wraps to the last row, as jax's gather does
     ids = rows.long() % dec["embds"].shape[1]
     x = dec["embds"][heads[None, :], ids].sum(1).expand(B, T, -1)      # [2, T, hidden]
-    positions = torch.arange(pos, end, device=device)
-    cos, sin = _rope_tables(positions, hs)
-    mask = None
-    if T > 1:
+    if T == 1:
+        positions = device_pos(pos, device)
+        slot = positions.long()
+        key_pos = torch.arange(cfg.max_generation_size, device=device)
+    else:
+        end = pos + T
+        positions = torch.arange(pos, end, device=device)
         key_pos = torch.arange(end, device=device)
-        # the query rows of a KV head run g-major: (g, t) -> g * T + t
-        mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, -1e9).repeat(G, 1)
+    cos, sin = _rope_tables(positions, hs)
+    # the query rows of a KV head run g-major: (g, t) -> g * T + t
+    mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, -1e9).repeat(G, 1)
     for l, L in enumerate(dec["layers"]):
         h = _rms(x, L["sa_norm"])
         q = _rope(apply_linear(h, L["sa_q"]).reshape(B, T, Hq, hs), cos, sin)
         k = _rope(apply_linear(h, L["sa_k"]).reshape(B, T, Hkv, hs), cos, sin)
         v = apply_linear(h, L["sa_v"]).reshape(B, T, Hkv, hs)
         ck, cv = cache["k"][l], cache["v"][l]                           # [2, Hkv, P, hs]
-        ck[:, :, pos:end] = k.transpose(1, 2).to(ck.dtype)
-        cv[:, :, pos:end] = v.transpose(1, 2).to(cv.dtype)
+        k, v = k.transpose(1, 2).to(ck.dtype), v.transpose(1, 2).to(cv.dtype)
+        if T == 1:
+            ck.index_copy_(2, slot, k)
+            cv.index_copy_(2, slot, v)
+            keys, values = ck, cv
+        else:
+            ck[:, :, pos:end] = k
+            cv[:, :, pos:end] = v
+            keys, values = ck[:, :, :end], cv[:, :, :end]
         qg = q.reshape(B, T, Hkv, G, hs).permute(0, 2, 3, 1, 4).reshape(B, Hkv, G * T, hs)
-        logits = torch.matmul(qg, ck[:, :, :end].float().transpose(2, 3))
-        if mask is not None:
-            logits = logits + mask
-        attn = torch.matmul(torch.softmax(logits, dim=-1), cv[:, :, :end].float())
+        logits = torch.matmul(qg, keys.float().transpose(2, 3)) + mask
+        attn = torch.matmul(torch.softmax(logits, dim=-1), values.float())
         attn = attn.reshape(B, Hkv, G, T, hs).permute(0, 3, 1, 2, 4).reshape(B, T, Hq * hs)
         x = x + apply_linear(attn, L["sa_o"])
 
@@ -369,11 +396,80 @@ def _drain_step(cfg: DiaConfig, row: np.ndarray, pos_after: int, dcur: int, limi
     return nxt.astype(np.int32), dcur
 
 
+class DiaStep(CapturedStep):
+    """One sequential CFG step over static device buffers: the body of the
+    JAX package's `dia_decode_loop` (the body at T = 1 on the cond and
+    uncond rows at the device position, the merge, `sample_tokens`, then
+    the next input row and the EOS drain counter as `_drain_step` evolves
+    them, its branches on the position as device `where`s), keyed as that
+    jit is: one per KV cache, cross-KV and static (top_k, do_sample,
+    use_top_p).  Its buffers: the next input row `row` [9], the drain
+    counter `delay` [1], `pos` [1] (each step advances it in place), the
+    request's token cap `limit` [1], the sampler state `last` / `count` [9]
+    and the 0-d f32 temperature, top_p and repetition penalty.  `buf` is
+    [sampled row | count | drain counter | next row] after the latest
+    step, the static slot the host copies out.
+
+    With `capture` (a card only) the step is captured at its first `run`
+    and replayed by every later one (`runtime/step_graph.py`); without it
+    `run` calls the same step."""
+
+    label = "dia"
+
+    def __init__(self, params: dict, cfg: DiaConfig, cache: dict, cross_kv: dict,
+                 generator: torch.Generator | None, device, *, top_k: int = 0,
+                 do_sample: bool = True, use_top_p: bool = True, capture: bool = False):
+        super().__init__(device, generator, top_k=top_k, do_sample=do_sample,
+                         use_top_p=use_top_p, capture=capture)
+        self.params, self.cfg, self.cache, self.cross_kv = params, cfg, cache, cross_kv
+        H = cfg.n_output_heads
+        with torch.inference_mode():
+            self.buf = torch.zeros(3 * H + 1, dtype=torch.int32, device=self.device)
+            self.row = torch.full((H,), cfg.bos_token_id, dtype=torch.int32, device=self.device)
+            self.delay = torch.full((1,), -1, dtype=torch.int32, device=self.device)
+            self.pos = torch.zeros(1, dtype=torch.int32, device=self.device)
+            self.limit = torch.zeros(1, dtype=torch.int32, device=self.device)
+            self.heads = torch.arange(H, dtype=torch.int32, device=self.device)
+            self.delays = torch.tensor(cfg.delay_pattern, dtype=torch.int32, device=self.device)
+        self.state = {"last": self.buf[:H], "count": self.buf[H:2 * H]}
+
+    def load(self, loop_state, limit: int, state: dict, *, temperature: float = 1.0,
+             top_p: float = 1.0, repetition_penalty: float = 1.0):
+        """Set the buffers from the host loop state (next row, drain
+        counter, position), the request's token cap and the sampler
+        state."""
+        tokens, delay, pos = loop_state
+        with torch.inference_mode():
+            self.row.copy_(torch.from_numpy(np.asarray(tokens, np.int32)))
+            self.delay.fill_(delay)
+            self.pos.fill_(pos)
+            self.limit.fill_(limit)
+        self._load_sampler(state, temperature, top_p, repetition_penalty)
+
+    def _step(self):
+        cfg = self.cfg
+        merged = _dia_rows(self.params, cfg, self.row[None], self.pos, self.cache,
+                           self.cross_kv)[0]
+        sampled, state = self._sample(merged)
+        self.pos += 1       # in place: the position after this row
+        nxt = torch.where(self.pos > self.heads, sampled, cfg.bos_token_id)
+        # the drain starts when head 0 emits EOS or the position nears the cap
+        trigger = (self.delay == -1) & ((nxt[:1] == cfg.eos_token_id)
+                                        | (self.pos >= self.limit - cfg.max_delay))
+        delay = torch.where(trigger, cfg.max_delay, self.delay)
+        step_after = cfg.max_delay - delay
+        drained = torch.where(step_after == self.delays, cfg.eos_token_id,
+                              torch.where(step_after > self.delays, cfg.pad_token_id, nxt))
+        self.row.copy_(torch.where(delay > 0, drained, nxt))
+        self.delay.copy_(torch.where(delay > 0, delay - 1, delay))
+        self.buf.copy_(torch.cat([sampled, state["count"], self.delay, self.row]))
+
+
 def dia_decode_loop(params: dict, cfg: DiaConfig, limit: int, budget: int, cache: dict,
                     cross_kv: dict, generator, sampler_state: dict, loop_state, *,
                     temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
                     repetition_penalty: float = 1.0, do_sample: bool = True,
-                    use_top_p: bool = True):
+                    use_top_p: bool = True, step: DiaStep | None = None):
     """The sequential CFG loop: up to `budget` steps from `loop_state`,
     stopping after the step that ends the drain; `limit` is the request's
     token cap, which starts the drain.  Returns (rows [n, 9] int32 numpy,
@@ -381,63 +477,35 @@ def dia_decode_loop(params: dict, cfg: DiaConfig, limit: int, budget: int, cache
     `generator` advances in place, so chunked calls decode what one call
     would.
 
-    The next input row and the drain counter evolve on the device (the
-    evolution of `_drain_step`); each step's output, counter and next row
-    are copied to pinned host memory behind an event and read once
-    `_LOOKAHEAD` later steps are enqueued, so the card keeps working while
-    the host checks for the stop."""
+    `step` makes each step (`step.run()`): a runner's `DiaStep` of this
+    key, cache, cross-KV and generator; None makes an uncaptured one for
+    this call (eager steps).  The step loads `loop_state` and `limit` and
+    evolves the next input row and the drain counter on the device; the
+    host reads each step's [sampled row | count | drain counter | next row]
+    `_LOOKAHEAD` steps behind (`read_behind`) while it checks for the
+    stop."""
     tokens, delay, pos = loop_state
     H = cfg.n_output_heads
     if budget <= 0 or delay == 0:
         return np.zeros((0, H), np.int32), sampler_state, loop_state
     device = cache["k"].device
-    cuda = device.type == "cuda"
-    heads = torch.arange(H, device=device)
-    delays = torch.tensor(cfg.delay_pattern, device=device)
-    host = torch.empty((budget, 2 * H + 1), dtype=torch.int32, pin_memory=cuda)
-    pending: collections.deque = collections.deque()   # (event, sampler state) per unread step
-    tok = torch.from_numpy(tokens).to(device)
-    dly = torch.tensor(delay, dtype=torch.int32, device=device)
-    state = sampler_state
+    if step is None:
+        step = DiaStep(params, cfg, cache, cross_kv, generator, device, top_k=top_k,
+                       do_sample=do_sample, use_top_p=use_top_p)
+    elif (step.key != (top_k, do_sample, use_top_p) or step.generator is not generator
+          or step.cache is not cache or step.cross_kv is not cross_kv):
+        raise ValueError(f"dia_decode_loop: the step is keyed {step.key} on its own cache, "
+                         f"cross-KV and generator, not {(top_k, do_sample, use_top_p)} on these")
+    step.load(loop_state, limit, sampler_state, temperature=temperature, top_p=top_p,
+              repetition_penalty=repetition_penalty)
     rows: list[np.ndarray] = []
-    last = None
-    enqueued = 0
-    while len(rows) < budget:
-        if enqueued < budget:
-            p = pos + enqueued
-            merged = _dia_rows(params, cfg, tok[None], p, cache, cross_kv)[0]
-            sampled, sampler_state = sample_tokens(
-                generator, merged, sampler_state, temperature=temperature, top_k=top_k,
-                top_p=top_p, repetition_penalty=repetition_penalty, do_sample=do_sample,
-                use_top_p=use_top_p)
-            nxt = sampled if p + 1 > H - 1 else torch.where(heads < p + 1, sampled,
-                                                            cfg.bos_token_id)
-            trigger = dly == -1
-            if p + 1 < limit - cfg.max_delay:
-                trigger = trigger & (nxt[0] == cfg.eos_token_id)
-            dly = torch.where(trigger, cfg.max_delay, dly)
-            step_after = cfg.max_delay - dly
-            drained = torch.where(step_after == delays, cfg.eos_token_id,
-                                  torch.where(step_after > delays, cfg.pad_token_id, nxt))
-            tok = torch.where(dly > 0, drained, nxt).to(torch.int32)
-            dly = torch.where(dly > 0, dly - 1, dly).to(torch.int32)
-            host[enqueued].copy_(torch.cat([sampled, dly[None], tok]), non_blocking=cuda)
-            event = torch.cuda.Event() if cuda else None
-            if event is not None:
-                event.record()
-            pending.append((event, sampler_state))
-            enqueued += 1
-            if len(pending) <= _LOOKAHEAD and enqueued < budget:
-                continue
-        event, state = pending.popleft()
-        if event is not None:
-            event.synchronize()
-        last = host[len(rows)].numpy().copy()
-        rows.append(last[:H])
-        if last[H] == 0:
+    for last in read_behind(step, budget, _LOOKAHEAD):
+        rows.append(last[:H].numpy().copy())
+        if int(last[2 * H]) == 0:
             break
+    state = {"last": last[:H].to(device, copy=True), "count": last[H:2 * H].to(device, copy=True)}
     return (np.stack(rows), state,
-            (last[H + 1:].astype(np.int32), int(last[H]), pos + len(rows)))
+            (last[2 * H + 1:].numpy().astype(np.int32), int(last[2 * H]), pos + len(rows)))
 
 
 def dia_decode_loop_spec_resume(params: dict, cfg: DiaConfig, limit: int, budget_end: int,
@@ -534,36 +602,56 @@ def _sync(device: torch.device):
 class DiaRunner(TTSRunner):
     sample_rate = 44100
     architecture = "dia"
-    device_arrays = ("params", "_cache")
+    device_arrays = ("params", "_cache", "_cross")
     device_components = ("dac",)
 
     def __init__(self, cfg: DiaConfig, params: dict, dac: DACDecoder, device=None):
-        """`device` defaults to the device the params live on."""
+        """`device` defaults to the device the params live on.
+
+        `decode_route` is how sequential steps run: "graph" (a captured
+        `DiaStep` per key, replayed) on a card, "eager" on the CPU; a caller
+        may set "eager" on the card to compare the two.  The runner owns
+        one generator on its device, reseeded per request, which its graphs
+        register, and one cross-KV buffer, which each request's encode
+        fills in place, so its graphs read the request's cross-KV."""
         self.cfg = cfg
         self.params = params
         self.dac = dac
         self.device = torch.device(device if device is not None
                                    else params["decoder"]["norm"].device)
         self._cache = None
+        self._cross: dict | None = None
         self.capture_trace = False
         self.last_trace: dict = {}
         self.load_timings: dict = {}
+        self.decode_route = "graph" if self.device.type == "cuda" else "eager"
+        self._generator: torch.Generator | None = None     # made at the first request
+        self._steps: dict = {}
 
     def _encode(self, ids: list[int], config: GenerationConfig):
         """The encoder on the cond row (the prompt's bytes) and the uncond
         row (zeros), both at the full context and the prompt's n_valid, and
-        the cross-KV; returns (cross_kv, generator, sampler state)."""
+        the cross-KV, written into the runner's cross-KV buffer; returns
+        (that buffer, the runner's generator reseeded for this request,
+        sampler state)."""
         cfg = self.cfg
         tokens = torch.zeros((2, cfg.max_encoder_context_length), dtype=torch.long)
         tokens[0, :len(ids)] = torch.tensor(ids)
         enc = dia_encode(self.params, cfg, tokens.to(self.device), len(ids))
         cross = dia_cross_kv(self.params, cfg, enc, len(ids))
+        if self._cross is None:
+            self._cross = cross
+        else:
+            for k, t in cross.items():
+                self._cross[k].copy_(t)
         if self._cache is None:
             self._cache = init_dia_cache(cfg, self.device)
-        generator = torch.Generator(device=self.device)
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
+        generator = self._generator
         generator.manual_seed(config.seed if config.seed is not None
                               else np.random.randint(0, 2**31 - 1))
-        return cross, generator, init_state(cfg.n_output_heads, self.device)
+        return self._cross, generator, init_state(cfg.n_output_heads, self.device)
 
     def _prompt_ids(self, text: str, config: GenerationConfig) -> list[int]:
         if config.max_tokens and config.max_tokens <= self.cfg.max_delay:
@@ -579,6 +667,21 @@ class DiaRunner(TTSRunner):
         cfg = self.cfg
         return np.full((cfg.max_generation_size + SPEC_K + 1, cfg.n_output_heads),
                        cfg.pad_token_id, np.int32)
+
+    def _decode_step(self, config: GenerationConfig) -> DiaStep:
+        """The `DiaStep` of this request's key on `decode_route`, made (and
+        on the "graph" route captured at its first step) once per KV cache,
+        cross-KV buffer and params."""
+        kw = self._sample_kw(config)
+        key = (self.decode_route, kw["top_k"], kw["do_sample"], kw["use_top_p"])
+        step = self._steps.get(key)
+        if (step is None or step.cache is not self._cache or step.cross_kv is not self._cross
+                or step.params is not self.params):
+            step = self._steps[key] = DiaStep(
+                self.params, self.cfg, self._cache, self._cross, self._generator, self.device,
+                top_k=key[1], do_sample=key[2], use_top_p=key[3],
+                capture=self.decode_route == "graph")
+        return step
 
     def generate_stream(self, text: str, config: GenerationConfig | None = None,
                         chunk_steps: int = 48):
@@ -614,7 +717,8 @@ class DiaRunner(TTSRunner):
                 else:
                     new, sampler_state, loop_state = dia_decode_loop(
                         self.params, cfg, max_gen, budget, self._cache, cross, generator,
-                        sampler_state, loop_state, **self._sample_kw(config))
+                        sampler_state, loop_state, step=self._decode_step(config),
+                        **self._sample_kw(config))
             done = loop_state[1] == 0                    # the drain ended
             outputs = np.concatenate([outputs, new])
             frames = adjust_output_tokens(outputs, cfg)
@@ -645,14 +749,17 @@ class DiaRunner(TTSRunner):
                 trace["step0_logits"] = multihead_logit_stats(
                     dia_step0_logits(self.params, cfg, self._cache, cross).cpu().numpy())
             if spec_enabled(config):
+                route = "spec"
                 out, loop_state = dia_decode_loop_spec_resume(
                     self.params, cfg, max_gen, cfg.max_generation_size, self._cache, cross,
                     dia_init_loop_state(cfg), self._out_buffer())
                 outputs = out[:loop_state[2]]
             else:
+                step = self._decode_step(config)
+                route = step.route
                 outputs, _, _ = dia_decode_loop(
                     self.params, cfg, max_gen, cfg.max_generation_size, self._cache, cross,
-                    generator, sampler_state, dia_init_loop_state(cfg),
+                    generator, sampler_state, dia_init_loop_state(cfg), step=step,
                     **self._sample_kw(config))
         t_decode = time.perf_counter()
 
@@ -675,6 +782,7 @@ class DiaRunner(TTSRunner):
                      "encode_ms": (t_encode - t0) * 1e3,
                      "decode_ms": (t_decode - t_encode) * 1e3,
                      "decode_steps": len(outputs),
+                     "decode_route": route,
                      "frames": int(len(frames)),
                      "codec_ms": (t_end - t_decode) * 1e3})
 

@@ -48,7 +48,6 @@ no such limit).
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import logging
 import math
@@ -63,13 +62,13 @@ from tts_tpu_torch.codecs.snac import SNACDecoder, params_from_jax  # noqa: F401
 from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
 from tts_tpu_torch.models.registry import register_loader
 from tts_tpu_torch.ops.attention import S_CHUNK, arrival_counters, flash_decode, quantize_kv
-from tts_tpu_torch.ops.qmatmul import (linear, linear_format, pack_q4_weight, pack_q8_weight,
-                                       qgemm_int4, qgemm_int8, qgemv_int4, qgemv_int8)
+from tts_tpu_torch.ops.qmatmul import linear, linear_format, pack_q4_weight, pack_q8_weight
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_drafts, spec_enabled
 from tts_tpu_torch.parallel.mesh import Shards, named, place, replicated, tree_map
 from tts_tpu_torch.runtime.api import (GenerationConfig, TTSError, TTSResponse, TTSRunner,
                                        card_device)
+from tts_tpu_torch.runtime.step_graph import CapturedStep, read_behind
 from tts_tpu_torch.text.tokenizers import BPETokenizer
 
 ORPHEUS_VOICES = ("zoe", "zac", "jess", "leo", "mia", "julia", "leah")
@@ -80,9 +79,6 @@ AUDIO_TOKEN_OFFSET = 128266
 # decode steps the host keeps enqueued past the newest token it has read (the
 # stop check): at most this many steps run, and are discarded, after a stop
 _LOOKAHEAD = 1
-# the kernel wrappers whose `.launches` a graph replay adds to (what the
-# capture launched: a replay calls no wrapper)
-_KERNELS = (qgemv_int8, qgemm_int8, qgemv_int4, qgemm_int4, flash_decode)
 
 
 @dataclass(frozen=True)
@@ -529,7 +525,7 @@ def orpheus_decode_step(params: dict, cfg: OrpheusConfig, token: torch.Tensor,
     return _head_logits(x[0], params, cfg)
 
 
-class DecodeGraph:
+class DecodeGraph(CapturedStep):
     """One sequential decode step over static device buffers: the
     counterpart of the JAX package's jitted `orpheus_decode_step` (body at
     T = 1, head and `sample_tokens`), and keyed as its jit is: one per KV
@@ -540,44 +536,25 @@ class DecodeGraph:
     the sampler reads as tensors, so a later request's values are the ones
     a replay uses.  `buf` is [token, last, count] after the latest step.
 
-    With `capture` (a card only) the first `run` is that request's step run
-    eagerly on a side stream (it meets whatever a first call initializes),
-    then the step is captured into one CUDA graph, under the caller's
-    serialization of the runner (the server's runner lock); every later
-    `run` replays it: one host call for 28 layers of kernels, the head and
-    the sampler.  `generator` is registered with the graph, so a replay
-    draws from its state at that moment and advances it by what the
-    captured draw consumed, as an eager step would: a runner reseeds it per
-    request.  A replay adds what the capture launched to each kernel
-    wrapper's `.launches`, so the counts stay what the card ran.  A failed
-    capture raises TTSError.  Without `capture` `run` calls the same step:
-    eager launches on the card, plain calls on the CPU."""
+    With `capture` (a card only) the step is captured at its first `run`
+    and replayed by every later one (`runtime/step_graph.py`: one host call
+    for 28 layers of kernels, the head and the sampler, the generator
+    registered with the graph, launch counts kept, TTSError on a failed
+    capture); without it `run` calls the same step."""
+
+    label = "orpheus"
 
     def __init__(self, params: dict, cfg: OrpheusConfig, cache, generator: torch.Generator | None,
                  device, *, top_k: int = 0, do_sample: bool = True, use_top_p: bool = True,
                  capture: bool = False):
-        device = torch.device(device)
-        if capture and device.type != "cuda":
-            raise ValueError(f"DecodeGraph: a CUDA graph is captured on a card, not on {device}")
-        self.params, self.cfg, self.cache, self.generator = params, cfg, cache, generator
-        self.top_k, self.do_sample, self.use_top_p = top_k, do_sample, use_top_p
-        self.capture = capture
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self._launches: list = []
+        super().__init__(device, generator, top_k=top_k, do_sample=do_sample,
+                         use_top_p=use_top_p, capture=capture)
+        self.params, self.cfg, self.cache = params, cfg, cache
         with torch.inference_mode():
-            self.buf = torch.zeros(3, dtype=torch.int32, device=device)
-            self.pos = torch.zeros(1, dtype=torch.int32, device=device)
-            self.values = torch.ones(3, dtype=torch.float32, device=device)
+            self.buf = torch.zeros(3, dtype=torch.int32, device=self.device)
+            self.pos = torch.zeros(1, dtype=torch.int32, device=self.device)
         self.token = self.buf[0:1]
         self.state = {"last": self.buf[1:2], "count": self.buf[2:3]}
-
-    @property
-    def route(self) -> str:
-        return "graph" if self.capture else "eager"
-
-    @property
-    def key(self) -> tuple:
-        return (self.top_k, self.do_sample, self.use_top_p)
 
     def load(self, token: torch.Tensor, pos: int, state: dict, *, temperature: float = 1.0,
              top_p: float = 1.0, repetition_penalty: float = 1.0):
@@ -585,57 +562,14 @@ class DecodeGraph:
         host synchronization."""
         with torch.inference_mode():
             self.token.copy_(token.reshape(1))
-            self.state["last"].copy_(state["last"].reshape(1))
-            self.state["count"].copy_(state["count"].reshape(1))
             self.pos.fill_(pos)
-            for i, v in enumerate((temperature, top_p, repetition_penalty)):
-                self.values[i].fill_(float(v))
+        self._load_sampler(state, temperature, top_p, repetition_penalty)
 
     def _step(self):
         logits = orpheus_decode_step(self.params, self.cfg, self.token, self.pos, self.cache)
-        token, state = sample_tokens(
-            self.generator, logits[None], self.state, temperature=self.values[0],
-            top_k=self.top_k, top_p=self.values[1], repetition_penalty=self.values[2],
-            do_sample=self.do_sample, use_top_p=self.use_top_p)
+        token, state = self._sample(logits[None])
         self.pos += 1       # in place: the next step reads it in stream order
         self.buf.copy_(torch.cat([token, state["last"], state["count"]]))
-
-    def _capture(self):
-        main = torch.cuda.current_stream(self.pos.device)
-        side = torch.cuda.Stream(self.pos.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._step()
-        main.wait_stream(side)
-        before = [k.launches for k in _KERNELS]
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._step()
-        except Exception as e:
-            raise TTSError(f"orpheus: capturing the decode step {self.key} failed: "
-                           f"{type(e).__name__}: {e}") from e
-        finally:
-            captured = [k.launches - b for k, b in zip(_KERNELS, before)]
-            for k, b in zip(_KERNELS, before):
-                k.launches = b          # the capture launched nothing on the card
-        self._launches = [(k, n) for k, n in zip(_KERNELS, captured) if n]
-        self.graph = graph
-
-    def run(self):
-        """One decode step: a replay, or the first step and the capture, or
-        an eager step."""
-        with torch.inference_mode():
-            if self.graph is not None:
-                self.graph.replay()
-                for k, n in self._launches:
-                    k.launches += n
-            elif self.capture:
-                self._capture()
-            else:
-                self._step()
 
 
 def orpheus_decode_loop(params: dict, cfg: OrpheusConfig, first_token: torch.Tensor,
@@ -650,10 +584,9 @@ def orpheus_decode_loop(params: dict, cfg: OrpheusConfig, first_token: torch.Ten
 
     `step` makes each step (`step.run()`): a runner's `DecodeGraph` of this
     key, whose `generator` this is; None makes an uncaptured one for this
-    call (eager steps).  After each step its [token, last, count] row is
-    copied to pinned host memory behind an event, and the host reads it
-    once `_LOOKAHEAD` later steps are enqueued: the card keeps working
-    while the host checks for the stop token."""
+    call (eager steps).  The host reads each step's [token, last, count]
+    `_LOOKAHEAD` steps behind (`read_behind`) while it checks for the stop
+    token."""
     out: list[int] = []
     if limit <= 0 or int(first_token[0]) == cfg.stopping_token_id:
         return out, sampler_state
@@ -666,28 +599,11 @@ def orpheus_decode_loop(params: dict, cfg: OrpheusConfig, first_token: torch.Ten
                          f"generator, not {(top_k, do_sample, use_top_p)} on this one")
     step.load(first_token, start_pos, sampler_state, temperature=temperature, top_p=top_p,
               repetition_penalty=repetition_penalty)
-    cuda = device.type == "cuda"
-    host = torch.empty((limit, 3), dtype=torch.int32, pin_memory=cuda)
-    pending: collections.deque = collections.deque()   # an event per unread step
-    enqueued = 0
-    while len(out) < limit:
-        if enqueued < limit:
-            step.run()
-            host[enqueued].copy_(step.buf, non_blocking=cuda)
-            event = torch.cuda.Event() if cuda else None
-            if event is not None:
-                event.record()
-            pending.append(event)
-            enqueued += 1
-            if len(pending) <= _LOOKAHEAD and enqueued < limit:
-                continue
-        event = pending.popleft()
-        if event is not None:
-            event.synchronize()
-        out.append(int(host[len(out), 0]))
+    for row in read_behind(step, limit, _LOOKAHEAD):
+        out.append(int(row[0]))
         if out[-1] == cfg.stopping_token_id:
             break
-    last, count = host[len(out) - 1, 1:].tolist()
+    last, count = row[1:].tolist()
     return out, {"last": torch.tensor([last], dtype=torch.int32, device=device),
                  "count": torch.tensor([count], dtype=torch.int32, device=device)}
 

@@ -11,20 +11,26 @@ the hand-written kernels of `ops/qmatmul.py` (`apply_linear`): the GEMVs at
 M = 1 (every sequential decode step), the GEMMs at M > 1 (the prompt
 prefill, the cross-KV precompute, the speculative verify).  Quantized
 checkpoints keep the KV cache and the heads in bf16.  Self- and
-cross-attention are plain torch products over the live prefix of the cache
-(no Pallas kernel served them on the TPU either): a key the JAX package
-masks with -1e9 contributes exactly 0 in f32, so reading only the live
-keys computes the same function.
+cross-attention are plain torch products (no Pallas kernel served them on
+the TPU either).  A decode step (T = 1) runs at a device position and
+reads the whole cache under the JAX package's additive -1e9 mask, so it
+has one shape at every position; the prefill and the verify window read
+the live prefix only, which computes the same function (a masked key
+weighs exactly 0 in f32).
 
-Decode is a host loop, as the port's Orpheus's is.  The sequential loop
-keeps its tokens and EOS flags on the device and reads each sampled row
-back one step behind (`_LOOKAHEAD`); the speculative greedy loop drafts,
-builds the staircase inputs and accepts on the host, with one read of the
-verify window's argmaxes (up to 8 rows) per forward.  The loop state
-(next input row, EOS flags, global step) lives on the host between calls,
-so `generate_stream` resumes either loop chunk by chunk on the global
-staircase.  The cache is written in place and reused unzeroed: a forward
-reads only the positions it has written.
+A sequential step is one `ParlerStep`, the body of the JAX package's
+`parler_decode_loop`: the row embedded at the device position, the body,
+the 9 heads, the sampler, the EOS flags and the staircase of the next row,
+over static device buffers, captured on the card as one CUDA graph per
+KV cache, cross-KV and static (top_k, do_sample, use_top_p) and replayed
+once per row, as JAX runs its compiled loop body; the host reads each row
+back one step behind (`_LOOKAHEAD`) and checks for the stop.  The
+speculative greedy loop drafts, builds the staircase inputs and accepts on
+the host, with one read of the verify window's argmaxes (up to 8 rows) per
+forward.  The loop state (next input row, EOS flags, global step) lives on
+the host between calls, so `generate_stream` resumes either loop chunk by
+chunk on the global staircase.  The cache is written in place and reused
+unzeroed.
 
 Not ported: the prompt buckets (`PROMPT_BUCKETS`): prefill runs the exact
 prompt length.
@@ -32,7 +38,6 @@ prompt length.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import math
 import time
@@ -50,6 +55,7 @@ from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_draft_rows, spec_enabled
 from tts_tpu_torch.runtime.api import (GenerationConfig, TTSError, TTSResponse, TTSRunner,
                                        card_device)
+from tts_tpu_torch.runtime.step_graph import CapturedStep, device_pos, read_behind
 from tts_tpu_torch.text.tokenizers import UnigramTokenizer
 
 # decode steps the host keeps enqueued past the newest row it has read (the
@@ -213,24 +219,49 @@ def _attend(q, k, v, mask, hs: int):
 
 
 def _transformer(params: dict, cfg: ParlerConfig, x: torch.Tensor, cache: dict,
-                 start_pos: int, cross_kv: dict | None) -> torch.Tensor:
-    """x [T, hidden] at positions start_pos.. -> final-normed [T, hidden];
-    writes K/V at those positions and attends causally over 0..start_pos+T."""
+                 start_pos, cross_kv: dict | None) -> torch.Tensor:
+    """x [T, hidden] -> final-normed [T, hidden], writing K/V in place.
+
+    T > 1 (the prefill, a verify window) runs at the int positions
+    start_pos.. and attends causally over the live prefix [0, start_pos +
+    T).  T == 1 (a decode step) runs at the device position start_pos (an
+    int32 tensor [1]; an int is made one): K/V are written at that slot
+    with index_copy_ and self-attention reads all cfg.max_ctx_length slots
+    under the JAX package's additive mask, 0 where key_pos <= pos and -1e9
+    past it, so the step has one shape at every position and a captured
+    graph of it serves them all.  A masked key weighs exp(-1e9 - max) = 0
+    exactly in f32 while its logit is finite, which holds: the cache is
+    zeroed when made and every slot past pos holds K/V an earlier forward
+    wrote from finite activations (a non-finite one would have shown in
+    that forward's own logits), so what earlier requests left there
+    changes nothing."""
     H, hs = cfg.n_attn_heads, cfg.head_size
     T = x.shape[0]
-    end = start_pos + T
-    mask = None
-    if T > 1:
+    if T == 1:
+        pos = device_pos(start_pos, x.device)
+        slot = pos.long()
+        key_pos = torch.arange(cfg.max_ctx_length, device=x.device)
+        mask = torch.where(key_pos[None, :] <= pos[:, None], 0.0, -1e9)
+    else:
+        end = start_pos + T
         key_pos = torch.arange(end, device=x.device)
         q_pos = start_pos + torch.arange(T, device=x.device)
         mask = torch.where(key_pos[None, :] <= q_pos[:, None], 0.0, -1e9)
     for l, L in enumerate(params["layers"]):
         h = _ln(x, L["sa_norm_w"], L["sa_norm_b"])
         ck, cv = cache["k"][l], cache["v"][l]
-        ck[start_pos:end] = apply_linear(h, L["sa_k"]).reshape(T, H, hs).to(ck.dtype)
-        cv[start_pos:end] = apply_linear(h, L["sa_v"]).reshape(T, H, hs).to(cv.dtype)
+        k = apply_linear(h, L["sa_k"]).reshape(T, H, hs).to(ck.dtype)
+        v = apply_linear(h, L["sa_v"]).reshape(T, H, hs).to(cv.dtype)
+        if T == 1:
+            ck.index_copy_(0, slot, k)
+            cv.index_copy_(0, slot, v)
+            keys, values = ck, cv
+        else:
+            ck[start_pos:end] = k
+            cv[start_pos:end] = v
+            keys, values = ck[:end], cv[:end]
         q = apply_linear(h, L["sa_q"]).reshape(T, H, hs)
-        x = x + apply_linear(_attend(q, ck[:end], cv[:end], mask, hs), L["sa_o"])
+        x = x + apply_linear(_attend(q, keys, values, mask, hs), L["sa_o"])
         if cross_kv is not None:
             h = _ln(x, L["ca_norm_w"], L["ca_norm_b"])
             q = apply_linear(h, L["ca_q"]).reshape(T, H, hs)
@@ -242,16 +273,22 @@ def _transformer(params: dict, cfg: ParlerConfig, x: torch.Tensor, cache: dict,
     return _ln(x, params["norm_w"], params["norm_b"])
 
 
-def _rows_logits(params: dict, cfg: ParlerConfig, rows: torch.Tensor, pos: int, cache: dict,
+def _rows_logits(params: dict, cfg: ParlerConfig, rows: torch.Tensor, pos, cache: dict,
                  cross_kv: dict | None) -> torch.Tensor:
     """Input rows [T, 9] (one token per head) at positions pos.. -> per-head
-    logits [T, 9, vocab] f32."""
+    logits [T, 9, vocab] f32.  T == 1 reads pos as `_transformer` does: a
+    device position, whose positional row is gathered on the device."""
     T = rows.shape[0]
     heads = torch.arange(cfg.n_output_heads, device=rows.device)
     # a head may emit an id past its audio_vocab + 2 embedding rows (the
     # heads are output_vocab wide): the row is clamped, as XLA's gather does
     ids = rows.long().clamp(max=params["embds"].shape[1] - 1)
-    x = params["embds"][heads[None, :], ids].sum(1) + params["positional"][pos:pos + T]
+    if T == 1:
+        pos = device_pos(pos, rows.device)
+        positional = params["positional"].index_select(0, pos.long())
+    else:
+        positional = params["positional"][pos:pos + T]
+    x = params["embds"][heads[None, :], ids].sum(1) + positional
     x = _transformer(params, cfg, x, cache, pos, cross_kv)
     return torch.matmul(x, params["heads"].to(x.dtype)).transpose(0, 1)
 
@@ -265,13 +302,13 @@ def parler_prefill(params: dict, cfg: ParlerConfig, tokens: torch.Tensor, cache:
     _transformer(params, cfg, x, cache, 0, cross_kv)
 
 
-def parler_decode_step(params: dict, cfg: ParlerConfig, audio_tokens: torch.Tensor, pos: int,
+def parler_decode_step(params: dict, cfg: ParlerConfig, audio_tokens: torch.Tensor, pos,
                        cache: dict, cross_kv: dict | None, generator, sampler_state: dict, *,
                        temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
                        repetition_penalty: float = 1.0, do_sample: bool = True,
                        use_top_p: bool = True):
-    """One AR step: audio_tokens [9] at position pos -> (sampled [9] int32,
-    sampler_state)."""
+    """One AR step: audio_tokens [9] at position pos (an int, or the device
+    int32 tensor [1]) -> (sampled [9] int32, sampler_state)."""
     logits = _rows_logits(params, cfg, audio_tokens[None], pos, cache, cross_kv)[0]
     return sample_tokens(generator, logits, sampler_state, temperature=temperature,
                          top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty,
@@ -306,11 +343,74 @@ def _next_row(cfg: ParlerConfig, row, eos_seen, gstep: int):
                     cfg.bos_token_id).astype(np.int32)
 
 
+class ParlerStep(CapturedStep):
+    """One sequential decode step over static device buffers: the body of
+    the JAX package's `parler_decode_loop` (the 9-head row embedded at the
+    device position, the body at T = 1, the 9 heads, `sample_tokens`, the
+    EOS flags and the BOS-delay staircase of the next row), keyed as that
+    jit is: one per KV cache, cross-KV (or None) and static (top_k,
+    do_sample, use_top_p).  Its buffers: the next input row `row` [9], the
+    EOS flags `eos` [9], `gstep` and `pos` [1] (each step advances both in
+    place), the sampler state `last` / `count` [9] and the 0-d f32
+    temperature, top_p and repetition penalty, which the sampler reads as
+    tensors.  `buf` is [sampled row | count] after the latest step, the
+    static slot the host copies out.
+
+    With `capture` (a card only) the step is captured at its first `run`
+    and replayed by every later one (`runtime/step_graph.py`); without it
+    `run` calls the same step."""
+
+    label = "parler"
+
+    def __init__(self, params: dict, cfg: ParlerConfig, cache: dict, cross_kv: dict | None,
+                 generator: torch.Generator | None, device, *, top_k: int = 0,
+                 do_sample: bool = True, use_top_p: bool = True, capture: bool = False):
+        super().__init__(device, generator, top_k=top_k, do_sample=do_sample,
+                         use_top_p=use_top_p, capture=capture)
+        self.params, self.cfg, self.cache, self.cross_kv = params, cfg, cache, cross_kv
+        H = cfg.n_output_heads
+        with torch.inference_mode():
+            self.buf = torch.zeros(2 * H, dtype=torch.int32, device=self.device)
+            self.row = torch.full((H,), cfg.bos_token_id, dtype=torch.int32, device=self.device)
+            self.eos = torch.zeros(H, dtype=torch.bool, device=self.device)
+            self.gstep = torch.zeros(1, dtype=torch.int32, device=self.device)
+            self.pos = torch.zeros(1, dtype=torch.int32, device=self.device)
+            self.heads = torch.arange(H, dtype=torch.int32, device=self.device)
+        self.state = {"last": self.buf[:H], "count": self.buf[H:]}
+
+    def load(self, loop_state, pos: int, state: dict, *, temperature: float = 1.0,
+             top_p: float = 1.0, repetition_penalty: float = 1.0):
+        """Set the buffers from the host loop state (next row, EOS flags,
+        global step), the position and the sampler state."""
+        tokens, eos_seen, gstep = loop_state
+        with torch.inference_mode():
+            self.row.copy_(torch.from_numpy(np.asarray(tokens, np.int32)))
+            self.eos.copy_(torch.from_numpy(np.asarray(eos_seen, bool)))
+            self.gstep.fill_(gstep)
+            self.pos.fill_(pos)
+        self._load_sampler(state, temperature, top_p, repetition_penalty)
+
+    def _step(self):
+        cfg = self.cfg
+        logits = _rows_logits(self.params, cfg, self.row[None], self.pos, self.cache,
+                              self.cross_kv)[0]
+        tokens, state = self._sample(logits)
+        # in place, read by the next step in stream order
+        self.eos |= tokens == cfg.eos_token_id
+        self.gstep += 1
+        self.row.copy_(torch.where(self.heads < self.gstep,
+                                   torch.where(self.eos, cfg.eos_token_id, tokens),
+                                   cfg.bos_token_id))
+        self.pos += 1
+        self.buf.copy_(torch.cat([tokens, state["count"]]))
+
+
 def parler_decode_loop(params: dict, cfg: ParlerConfig, start_pos: int, limit: int,
                        cache: dict, cross_kv: dict | None, generator, sampler_state: dict,
                        loop_state, *, temperature: float = 1.0, top_k: int = 0,
                        top_p: float = 1.0, repetition_penalty: float = 1.0,
-                       do_sample: bool = True, use_top_p: bool = True):
+                       do_sample: bool = True, use_top_p: bool = True,
+                       step: ParlerStep | None = None):
     """The sequential 9-head loop: up to `limit` steps from `loop_state`,
     stopping after the row in which the last head emits EOS.  Returns (rows
     [n, 9] int32 numpy, the sampler state after the last row, the loop
@@ -318,54 +418,36 @@ def parler_decode_loop(params: dict, cfg: ParlerConfig, start_pos: int, limit: i
     `loop_state`, so chunked calls decode what one call would; `generator`
     advances in place.
 
-    Each step's inputs stay on the device; its sampled row is copied to
-    pinned host memory behind an event and read once `_LOOKAHEAD` later
-    steps are enqueued, so the card keeps working while the host checks
-    for the stop."""
+    `step` makes each step (`step.run()`): a runner's `ParlerStep` of this
+    key, cache, cross-KV and generator; None makes an uncaptured one for
+    this call (eager steps).  The step loads `loop_state` and keeps the
+    next row, the EOS flags and the global step on the device; the host
+    reads each step's [sampled row | count] `_LOOKAHEAD` steps behind
+    (`read_behind`) while it checks for the stop."""
     tokens, eos_seen, gstep = loop_state
-    rows: list[np.ndarray] = []
+    H = cfg.n_output_heads
     if limit <= 0 or eos_seen.all():
-        return np.zeros((0, cfg.n_output_heads), np.int32), sampler_state, loop_state
+        return np.zeros((0, H), np.int32), sampler_state, loop_state
     device = cache["k"].device
-    cuda = device.type == "cuda"
-    heads = torch.arange(cfg.n_output_heads, device=device)
-    host = torch.empty((limit, cfg.n_output_heads), dtype=torch.int32, pin_memory=cuda)
-    pending: collections.deque = collections.deque()   # (event, sampler state) per unread step
-    tok = torch.from_numpy(tokens).to(device)
-    eos = torch.from_numpy(eos_seen).to(device)
+    if step is None:
+        step = ParlerStep(params, cfg, cache, cross_kv, generator, device, top_k=top_k,
+                          do_sample=do_sample, use_top_p=use_top_p)
+    elif (step.key != (top_k, do_sample, use_top_p) or step.generator is not generator
+          or step.cache is not cache or step.cross_kv is not cross_kv):
+        raise ValueError(f"parler_decode_loop: the step is keyed {step.key} on its own cache, "
+                         f"cross-KV and generator, not {(top_k, do_sample, use_top_p)} on these")
+    step.load(loop_state, start_pos, sampler_state, temperature=temperature, top_p=top_p,
+              repetition_penalty=repetition_penalty)
     eos_host = eos_seen.copy()
-    state = sampler_state
-    enqueued = 0
-    while len(rows) < limit:
-        if enqueued < limit:
-            sampled, sampler_state = parler_decode_step(
-                params, cfg, tok, start_pos + enqueued, cache, cross_kv, generator,
-                sampler_state, temperature=temperature, top_k=top_k, top_p=top_p,
-                repetition_penalty=repetition_penalty, do_sample=do_sample,
-                use_top_p=use_top_p)
-            eos = eos | (sampled == cfg.eos_token_id)
-            tok = torch.where(heads < gstep + enqueued + 1,
-                              torch.where(eos, cfg.eos_token_id, sampled),
-                              cfg.bos_token_id).to(torch.int32)
-            host[enqueued].copy_(sampled, non_blocking=cuda)
-            event = torch.cuda.Event() if cuda else None
-            if event is not None:
-                event.record()
-            pending.append((event, sampler_state))
-            enqueued += 1
-            if len(pending) <= _LOOKAHEAD and enqueued < limit:
-                continue
-        event, state = pending.popleft()
-        if event is not None:
-            event.synchronize()
-        row = host[len(rows)].numpy().copy()
-        rows.append(row)
-        eos_host |= row == cfg.eos_token_id
+    rows: list[np.ndarray] = []
+    for last in read_behind(step, limit, _LOOKAHEAD):
+        rows.append(last[:H].numpy().copy())
+        eos_host |= rows[-1] == cfg.eos_token_id
         if eos_host.all():
             break
+    state = {"last": last[:H].to(device, copy=True), "count": last[H:].to(device, copy=True)}
     g = gstep + len(rows)
-    return (np.stack(rows), state,
-            (_next_row(cfg, rows[-1], eos_host, g), eos_host, g))
+    return np.stack(rows), state, (_next_row(cfg, rows[-1], eos_host, g), eos_host, g)
 
 
 def parler_decode_loop_spec_resume(params: dict, cfg: ParlerConfig, start_pos: int, limit: int,
@@ -451,7 +533,13 @@ class ParlerRunner(TTSRunner):
 
     def __init__(self, cfg: ParlerConfig, params: dict, tokenizer: UnigramTokenizer,
                  dac: DACDecoder, device=None):
-        """`device` defaults to the device the params live on."""
+        """`device` defaults to the device the params live on.
+
+        `decode_route` is how sequential steps run: "graph" (a captured
+        `ParlerStep` per key, replayed) on a card, "eager" on the CPU; a
+        caller may set "eager" on the card to compare the two.  The runner
+        owns one generator on its device, reseeded per request, which its
+        graphs register."""
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -464,6 +552,9 @@ class ParlerRunner(TTSRunner):
         self.capture_trace = False
         self.last_trace: dict = {}
         self.load_timings: dict = {}
+        self.decode_route = "graph" if self.device.type == "cuda" else "eager"
+        self._generator: torch.Generator | None = None     # made at the first request
+        self._steps: dict = {}
 
     def update_conditional_prompt(self, text_encoder_path: str, prompt: str):
         """Re-encode the voice-conditioning prompt with a T5 GGUF and
@@ -479,6 +570,8 @@ class ParlerRunner(TTSRunner):
         self.params["text_encoding"] = torch.from_numpy(encoding).to(self.device)
         with torch.inference_mode():
             self.cross_kv = precompute_cross_kv(self.params, self.cfg)
+        # a graph captured on the old cross-KV would read its freed memory
+        self._steps = {k: s for k, s in self._steps.items() if s.cross_kv is None}
 
     def _prompt_ids(self, text: str) -> list[int]:
         ids = self.tokenizer.tokenize(text) + [self.tokenizer.eos_token]
@@ -488,15 +581,17 @@ class ParlerRunner(TTSRunner):
         return ids
 
     def _prefill(self, ids: list[int], config: GenerationConfig):
-        """Prompt prefill; returns (cross_kv or None, generator, sampler
-        state, max_steps)."""
+        """Prompt prefill; returns (cross_kv or None, the runner's generator
+        reseeded for this request, sampler state, max_steps)."""
         cfg = self.cfg
         cross = self.cross_kv if config.use_cross_attn else None
         if self._cache is None:
             self._cache = init_kv_cache(cfg, self.device)
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
         parler_prefill(self.params, cfg, torch.tensor(ids, device=self.device), self._cache,
                        cross)
-        generator = torch.Generator(device=self.device)
+        generator = self._generator
         generator.manual_seed(config.seed if config.seed is not None
                               else np.random.randint(0, 2**31 - 1))
         max_steps = min(config.max_tokens or cfg.max_generation_size,
@@ -512,6 +607,21 @@ class ParlerRunner(TTSRunner):
         cfg = self.cfg
         return np.full((cfg.max_generation_size + SPEC_K + 1, cfg.n_output_heads),
                        cfg.eos_token_id, np.int32)
+
+    def _decode_step(self, config: GenerationConfig, cross: dict | None) -> ParlerStep:
+        """The `ParlerStep` of this request's key on `decode_route`, made
+        (and on the "graph" route captured at its first step) once per KV
+        cache, cross-KV and params."""
+        kw = self._sample_kw(config)
+        key = (self.decode_route, kw["top_k"], kw["do_sample"], kw["use_top_p"], cross is None)
+        step = self._steps.get(key)
+        if (step is None or step.cache is not self._cache or step.cross_kv is not cross
+                or step.params is not self.params):
+            step = self._steps[key] = ParlerStep(
+                self.params, self.cfg, self._cache, cross, self._generator, self.device,
+                top_k=key[1], do_sample=key[2], use_top_p=key[3],
+                capture=self.decode_route == "graph")
+        return step
 
     def generate_stream(self, text: str, config: GenerationConfig | None = None,
                         chunk_steps: int = 48):
@@ -547,7 +657,8 @@ class ParlerRunner(TTSRunner):
                 else:
                     new, sampler_state, loop_state = parler_decode_loop(
                         self.params, cfg, T + i_cum, budget, self._cache, cross, generator,
-                        sampler_state, loop_state, **self._sample_kw(config))
+                        sampler_state, loop_state, step=self._decode_step(config, cross),
+                        **self._sample_kw(config))
             done = len(new) < budget                   # every head emitted EOS
             outputs = np.concatenate([outputs, new])
             frames = adjust_output_tokens(outputs, cfg)
@@ -578,14 +689,17 @@ class ParlerRunner(TTSRunner):
                 trace["step0_logits"] = multihead_logit_stats(
                     parler_step0_logits(self.params, cfg, T, self._cache, cross).cpu().numpy())
             if spec_enabled(config):
+                route = "spec"
                 out, loop_state, _ = parler_decode_loop_spec_resume(
                     self.params, cfg, T, max_steps, self._cache, cross, init_loop_state(cfg),
                     self._out_buffer())
                 outputs = out[:loop_state[2]]
             else:
+                step = self._decode_step(config, cross)
+                route = step.route
                 outputs, _, _ = parler_decode_loop(
                     self.params, cfg, T, max_steps, self._cache, cross, generator,
-                    sampler_state, init_loop_state(cfg), **self._sample_kw(config))
+                    sampler_state, init_loop_state(cfg), step=step, **self._sample_kw(config))
         t_decode = time.perf_counter()
 
         frames = adjust_output_tokens(outputs, cfg)
@@ -607,6 +721,7 @@ class ParlerRunner(TTSRunner):
                      "prefill_ms": (t_prefill - t0) * 1e3,
                      "decode_ms": (t_decode - t_prefill) * 1e3,
                      "decode_steps": len(outputs),
+                     "decode_route": route,
                      "frames": int(len(frames)),
                      "codec_ms": (t_end - t_decode) * 1e3})
 
