@@ -32,6 +32,7 @@ shapes, with no bucket ladder.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import queue
@@ -46,6 +47,7 @@ import numpy as np
 from tts_tpu_torch.apps.web_ui import INDEX_HTML
 from tts_tpu_torch.models.registry import runner_from_file
 from tts_tpu_torch.runtime.api import GenerationConfig, TTSError
+from tts_tpu_torch.utils import trace
 from tts_tpu_torch.utils.audio import encode_aiff, encode_wav
 
 
@@ -105,6 +107,15 @@ class ServerState:
                         self.model_paths[model], self.default_config, device=self.device)
         return self._runners[key], lock
 
+    @contextlib.contextmanager
+    def _serve(self, lock, task):
+        """Hold the runner's lock for `task`: its `wait` span (the handler's)
+        ends once the lock is held, and its `service` span runs while it is."""
+        with lock:
+            task.get("wait", trace.NOOP).end()
+            with trace.span("service", parent=task.get("span", trace.NOOP)) as service:
+                yield service
+
     def _worker_loop(self, wid: int = 0):
         while True:
             task = self.tasks.get()
@@ -119,22 +130,25 @@ class ServerState:
                     # as it is made; the others send the whole utterance
                     chunks, cancel = task["chunks"], task["cancel"]
                     try:
-                        with lock:
+                        with self._serve(lock, task) as service:
                             if hasattr(runner, "generate_stream"):
                                 for piece in runner.generate_stream(task["prompt"],
                                                                     task["config"]):
                                     if cancel.is_set():
                                         break  # client gone / timed out
+                                    service.stamp("t_first_ns")
                                     chunks.put(piece)
                             else:
-                                chunks.put(runner.generate(task["prompt"],
-                                                           task["config"]).audio)
+                                audio = runner.generate(task["prompt"], task["config"]).audio
+                                service.stamp("t_first_ns")
+                                chunks.put(audio)
                         result = {"success": True}
                     finally:
                         chunks.put(None)          # end-of-stream sentinel
                 elif task["kind"] == "tts":
-                    with lock:
+                    with self._serve(lock, task) as service:
                         resp = runner.generate(task["prompt"], task["config"])
+                        service.stamp("t_first_ns")
                     wall_ms = (time.perf_counter() - t0) * 1e3
                     result = {"success": True, "audio": resp.audio,
                               "sample_rate": resp.sample_rate,
@@ -169,7 +183,8 @@ class ServerState:
 
     def submit(self, task: dict, timeout: float | None = None) -> dict:
         timeout = timeout or self.request_timeout
-        task["id"] = uuid.uuid4().hex
+        if "id" not in task:
+            task["id"] = uuid.uuid4().hex
         self.tasks.put(task)
         with self.results_cv:
             ok = self.results_cv.wait_for(lambda: task["id"] in self.results,
@@ -232,7 +247,17 @@ def make_handler(state: ServerState):
                 self._send_json(*error_json("not found", "invalid_request_error", 404))
 
         def handle_tts(self):
+            """One speech request inside its `http` span (from the parsed body
+            to the last byte written), whose request id is the task's id."""
             data = self._read_json()
+            t_req, rid = time.perf_counter_ns(), uuid.uuid4().hex
+            http = trace.span("http", request=rid, start_ns=t_req)
+            try:
+                self._tts(data, rid, http, t_req)
+            finally:
+                http.end()
+
+        def _tts(self, data, rid: str, http, t_req: int):
             if data is None or not isinstance(data.get("input"), str):
                 self._send_json(*error_json(
                     "the 'input' field is required for tts generation and must "
@@ -269,10 +294,11 @@ def make_handler(state: ServerState):
                 self._send_json(*error_json(f"invalid sampling parameter: {e}"))
                 return
             if fmt == "pcm":
-                self.stream_pcm(model, data["input"], cfg)
+                self.stream_pcm(model, data["input"], cfg, rid, http, t_req)
                 return
-            result = state.submit({"kind": "tts", "model": model,
-                                   "prompt": data["input"], "config": cfg})
+            result = state.submit({"id": rid, "kind": "tts", "model": model,
+                                   "prompt": data["input"], "config": cfg, "span": http,
+                                   "wait": trace.span("wait", parent=http)})
             if not result["success"]:
                 code = 400 if result.get("user_error") else 500
                 self._send_json(*error_json(result["message"], "server_error", code))
@@ -297,21 +323,23 @@ def make_handler(state: ServerState):
                   f"rtf={rtf if rtf is None else round(rtf, 4)} "
                   f"timings={result.get('timings')}", file=sys.stderr)
 
-        def stream_pcm(self, model: str, prompt: str, cfg: GenerationConfig):
+        def stream_pcm(self, model: str, prompt: str, cfg: GenerationConfig, rid: str,
+                       http, t_req: int):
             """Chunked-transfer stream of 16-bit little-endian PCM; the first
             chunk arrives at time-to-first-audio.  `cancel` stops the
-            worker's generation if the client goes or a chunk times out."""
+            worker's generation if the client goes or a chunk times out.
+            The `ttfa=` line reads the clock readings of the `http` span."""
             chunks: queue.Queue = queue.Queue()
             cancel = threading.Event()
-            t_req = time.perf_counter()
-            state.tasks.put({"id": uuid.uuid4().hex, "kind": "tts_stream", "model": model,
+            state.tasks.put({"id": rid, "kind": "tts_stream", "model": model,
                              "prompt": prompt, "config": cfg, "chunks": chunks,
-                             "cancel": cancel})
+                             "cancel": cancel, "span": http,
+                             "wait": trace.span("wait", parent=http)})
             self.send_response(200)
             self.send_header("Content-Type", "audio/pcm")
             self.send_header("Transfer-Encoding", "chunked")
             self.end_headers()
-            ttfa_ms = None
+            t_first = None
             n_samples = 0
             status = "done"
             try:
@@ -323,8 +351,9 @@ def make_handler(state: ServerState):
                         break
                     if piece is None:
                         break
-                    if ttfa_ms is None:
-                        ttfa_ms = (time.perf_counter() - t_req) * 1e3
+                    if t_first is None:
+                        t_first = time.perf_counter_ns()
+                        http.set("t_first_ns", t_first)
                     n_samples += len(piece)
                     pcm = (np.clip(piece, -1, 1) * 32767).astype("<i2").tobytes()
                     if pcm:
@@ -338,9 +367,12 @@ def make_handler(state: ServerState):
             finally:
                 if status != "done":
                     cancel.set()
-            wall = time.perf_counter() - t_req
+            t_end = time.perf_counter_ns()
+            http.set("samples", n_samples)
+            http.end(t_end)
+            ttfa_ms = None if t_first is None else (t_first - t_req) / 1e6
             print(f"[srv] stream {status}: ttfa={ttfa_ms and round(ttfa_ms, 1)} ms "
-                  f"samples={n_samples} wall={wall * 1e3:.1f} ms", file=sys.stderr)
+                  f"samples={n_samples} wall={(t_end - t_req) / 1e6:.1f} ms", file=sys.stderr)
 
         def handle_conditional(self):
             data = self._read_json() or {}

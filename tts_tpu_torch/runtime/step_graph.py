@@ -36,6 +36,7 @@ from tts_tpu_torch.ops.attention import flash_decode
 from tts_tpu_torch.ops.qmatmul import qgemm_int4, qgemm_int8, qgemv_int4, qgemv_int8
 from tts_tpu_torch.ops.sampling import sample_tokens
 from tts_tpu_torch.runtime.api import TTSError
+from tts_tpu_torch.utils import trace
 
 # the kernel wrappers whose `.launches` a graph replay adds to (what the
 # capture launched: a replay calls no wrapper)
@@ -145,24 +146,49 @@ def read_behind(step: CapturedStep, limit: int, lookahead: int):
     """Run `step` up to `limit` times; yield each run's `step.buf` as a host
     int32 row, in order, once `lookahead` later runs are enqueued (the
     last ones at once).  At most `lookahead` runs happen, and are
-    discarded, after the row where the caller stops iterating."""
+    discarded, after the row where the caller stops iterating.
+
+    The loop is one `decode` span (`utils/trace.py`), ended when the
+    caller stops iterating: `rows` read and, with the recorder on and on
+    a card, `device_ns` and `idle_ns` from an event before each run and
+    the timed event after its copy, read after one synchronization at the
+    end (host time inside `step.run` before its launch counts as device
+    time).  With the recorder off it makes one untimed event a run."""
     cuda = step.device.type == "cuda"
     host = torch.empty((limit, step.buf.numel()), dtype=torch.int32, pin_memory=cuda)
     pending: collections.deque = collections.deque()   # an event per unread run
     enqueued = read = 0
-    while read < limit:
-        if enqueued < limit:
-            step.run()
-            host[enqueued].copy_(step.buf, non_blocking=cuda)
-            event = torch.cuda.Event() if cuda else None
+    span = trace.span("decode")
+    timed = cuda and span is not trace.NOOP
+    starts: list = []
+    ends: list = []
+    try:
+        while read < limit:
+            if enqueued < limit:
+                if timed:
+                    starts.append(torch.cuda.Event(enable_timing=True))
+                    starts[-1].record()
+                step.run()
+                host[enqueued].copy_(step.buf, non_blocking=cuda)
+                event = torch.cuda.Event(enable_timing=timed) if cuda else None
+                if event is not None:
+                    event.record()
+                if timed:
+                    ends.append(event)
+                pending.append(event)
+                enqueued += 1
+                if len(pending) <= lookahead and enqueued < limit:
+                    continue
+            event = pending.popleft()
             if event is not None:
-                event.record()
-            pending.append(event)
-            enqueued += 1
-            if len(pending) <= lookahead and enqueued < limit:
-                continue
-        event = pending.popleft()
-        if event is not None:
-            event.synchronize()
-        yield host[read]
-        read += 1
+                event.synchronize()
+            read += 1
+            yield host[read - 1]
+    finally:
+        span.set("rows", read)
+        if timed and read:
+            ends[read - 1].synchronize()
+            span.set("device_ns", starts[0].elapsed_time(ends[read - 1]) * 1e6)
+            span.set("idle_ns", sum(ends[i - 1].elapsed_time(starts[i])
+                                    for i in range(1, read)) * 1e6)
+        span.end()
