@@ -71,8 +71,12 @@ Phases (any failure exits non-zero, before the final line):
      against f32 on one sentence, and one torch.profiler pass of a warm
      request (device-busy share, top kernels); the five kernels' launch
      counts must stay 0 over the served requests
-  7. Parler-TTS mini v1, which runs the four matmul kernels and not
-     flash_decode: tiny Q8_0 and Q4_0 models' CUDA forwards (8 GEMV steps
+  7. Parler-TTS mini v1, which runs the four matmul kernels and
+     prefix_attention (its decode step's self-attention), not flash_decode:
+     prefix_attention against its plain version (the masked read of the
+     whole cache) at 16 heads of 64 over 4,096 slots, pos 63-4,095, timed
+     from CUDA-graph replays beside its bound and scaled_dot_product_attention
+     on the same live bf16 rows; tiny Q8_0 and Q4_0 models' CUDA forwards (8 GEMV steps
      at a device position, one 8-row GEMM verify) and DAC against the CPU,
      and their sampled and greedy rows on the graph route (one captured
      ParlerStep per key) equal to the eager route's; then seeded random
@@ -84,13 +88,16 @@ Phases (any failure exits non-zero, before the final line):
      /v1/audio/conditional-prompt call and a sampled request on the new
      encoding, 256 rows each (wall, rows/s, route, RTF, load s, peak
      memory); the launch counts must show the int8 pair alone on Q8_0 and
-     the int4 pair alone on Q4_0, exactly 192 GEMVs per sequential step (a
-     replay counts what its capture launched), flash_decode 0; then the
+     the int4 pair alone on Q4_0, exactly 192 GEMVs and 24 prefix_attention
+     per sequential step (a replay counts what its capture launched),
+     flash_decode 0; then the
      decode rounds: sampled rows/s of the eager and the graph route in
      alternating rounds (eager, graph, graph, eager) at one seed, rows
      equal and launches exact, the graph route faster in every pair, other
      sampling values on the same graph equal to their eager run, the device
-     ms of one replay; the greedy bracket: speculative, force_miss and
+     ms of one replay, and one row's device ms with the masked read
+     captured in the kernel's place (before) and as it runs (after) at pos
+     300, 1,000 and 2,000; the greedy bracket: speculative, force_miss and
      sequential (graph) rows/s after one prefill, and where the rows part;
      and a profiled graph-route request (device busy share)
   8. Dia-1.6B, which runs the format's GEMM alone (the CFG pair makes every
@@ -240,6 +247,15 @@ KOKORO_BF16_MIN_CORR = 0.95
 # hidden 1024 with a 1024-wide encoding, fc1, fc2), 8 of them per layer
 PARLER_SHAPES = {"attn": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
 PARLER_LAYERS, PARLER_LINEARS = 24, 8
+# phase 7's prefix_attention rows: Parler-TTS mini v1's self-attention (16
+# heads of 64, a 4,096-slot bf16 cache), at these positions, against the
+# masked read of the whole cache; the sums differ in order only
+PARLER_ATTN = (16, 64, 4096)
+PARLER_ATTN_POSITIONS = (63, 511, 1023, 2047, 4095)
+PARLER_ATTN_TOL = 1e-5
+# positions at which phase 7 times one graph row with the kernel and with
+# the masked read captured in its place
+PARLER_ROW_POSITIONS = (300, 1000, 2000)
 PARLER_MAX_TOKENS = 256            # rows per request: random heads never stop
 PARLER_PROFILE_ROWS = 48           # rows of the sampled request profiled
 PARLER_TEXTS = ("Hello from Parler on the card.", "A greedy request on the speculative path.",
@@ -761,7 +777,7 @@ def launch_counters() -> dict:
     from tts_tpu_torch.ops import qmatmul as tq
 
     return {k.__name__: k for k in (tq.qgemv_int8, tq.qgemm_int8, tq.qgemv_int4,
-                                    tq.qgemm_int4, ta.flash_decode)}
+                                    tq.qgemm_int4, ta.flash_decode, ta.prefix_attention)}
 
 
 def _counting(module, name: str, kind):
@@ -1484,6 +1500,143 @@ def tiny_graph_vs_eager(r, model: str, text: str):
           f"eager route's at one seed, captured {captured}")
 
 
+def parler_attention() -> dict:
+    """Phase 7's kernel rows: prefix_attention (Parler's decode-step
+    self-attention) at Parler-TTS mini v1's shapes, 16 heads of 64 over a
+    position-major 4,096-slot bf16 cache, at PARLER_ATTN_POSITIONS: against
+    its plain version (the masked read of the whole cache, here on the
+    card) within PARLER_ATTN_TOL of max|out|, one device kernel per call,
+    identical bits twice; device times from CUDA-graph replays (plain,
+    kernel, library, library, kernel, plain) cycling through 24 layers'
+    caches (403 MB per K and V: the live rows come from HBM past pos ~256,
+    as in a decode row), beside the bound (the live K/V, q and out over
+    3.35 TB/s) and scaled_dot_product_attention on the same live bf16 rows
+    (bf16 q: the library yardstick, which the port never calls).  Returns
+    the kernel's record for the kernels JSON line."""
+    import torch
+
+    from tts_tpu_torch.ops import _ext
+    from tts_tpu_torch.ops import attention as ta
+
+    dev = torch.device("cuda")
+    H, hs, S = PARLER_ATTN
+    g = torch.Generator(device=dev).manual_seed(18)
+    k = torch.randn((PARLER_LAYERS, S, H, hs), generator=g, device=dev).bfloat16()
+    v = torch.randn((PARLER_LAYERS, S, H, hs), generator=g, device=dev).bfloat16()
+    q = torch.randn((1, H, hs), generator=g, device=dev)
+    counters = ta.arrival_counters(H, dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for pos in PARLER_ATTN_POSITIONS:
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        want = ta.prefix_attention_plain(q, k[0], v[0], pos_t)
+        got = ta.prefix_attention(q, k[0], v[0], pos_t, counters)
+        a, r = rel_err(got, want)
+        names = [e["name"] for e in _ext.device_activity(
+            lambda: ta.prefix_attention(q, k[0], v[0], pos_t, counters))]
+        check(len(names) == 1 and "prefix_attention_kernel" in names[0],
+              f"prefix_attention pos={pos}: device kernels per call {names}")
+        check(torch.equal(got, ta.prefix_attention(q, k[0], v[0], pos_t, counters)),
+              f"prefix_attention pos={pos}: two calls differ")
+        qb = q.bfloat16().transpose(0, 1)[None]                      # [1, H, 1, hs]
+        fns = {"plain": lambda j: ta.prefix_attention_plain(q, k[j % PARLER_LAYERS],
+                                                            v[j % PARLER_LAYERS], pos_t),
+               "kernel": lambda j: ta.prefix_attention(q, k[j % PARLER_LAYERS],
+                                                       v[j % PARLER_LAYERS], pos_t, counters),
+               "library": lambda j: sdpa(qb, k[j % PARLER_LAYERS, :pos + 1].transpose(0, 1)[None],
+                                         v[j % PARLER_LAYERS, :pos + 1].transpose(0, 1)[None])}
+        _, lr = rel_err(fns["library"](0).reshape(1, H * hs), want)
+        t = timed(fns, {"plain": 3, "kernel": 2 * PARLER_LAYERS, "library": 2 * PARLER_LAYERS})
+        nbytes = (pos + 1) * H * hs * 2 * 2 + 2 * H * hs * 4
+        rows.append({"shape": f"H={H} hs={hs} S={S} pos={pos}", "abs": a, "rel": r,
+                     "ms": t["kernel"], "plain_ms": t["plain"],
+                     "bound_ms": bound(nbytes, 4 * H * (pos + 1) * hs)[0], "bound_by": "bytes",
+                     "library_ms": t["library"], "library_rel": lr, "device_kernels": 1})
+        gbs = nbytes / (t["kernel"] * 1e-3) / 1e9
+        print(f"prefix_attention bf16 H={H} hs={hs} pos={pos:4d}  rel_err {r:.2e} (tol "
+              f"{PARLER_ATTN_TOL:.0e})  kernel {t['kernel'] * 1e3:6.2f} us  plain "
+              f"{t['plain'] * 1e3:8.1f} us  library {t['library'] * 1e3:6.2f} us  bound "
+              f"{rows[-1]['bound_ms'] * 1e3:5.2f} us  {gbs:7.1f} GB/s  1 device kernel per call  "
+              f"(library rel_err {lr:.1e}, bf16 q)")
+        check(r < PARLER_ATTN_TOL, f"prefix_attention pos={pos}: rel err {r} >= "
+              f"{PARLER_ATTN_TOL}")
+    check(not counters.any(), f"prefix_attention left its counters at {counters.tolist()}")
+    del k, v
+    torch.cuda.empty_cache()
+    return {"name": "prefix_attention", "route": "cuda",
+            "source": "tts_tpu_torch/csrc/prefix_attention.cu",
+            "replaces": "none (tts_tpu/models/parler.py::_transformer's masked read, plain jnp)",
+            "max_abs_err": max(r["abs"] for r in rows), "max_rel_err": max(r["rel"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
+            "library_ms": sum(r["library_ms"] for r in rows), "rows": rows}
+
+
+def parler_row_before_after(runner, qtype: str) -> dict:
+    """One graph row's device ms, before and after: the runner's own step
+    (prefix_attention) against the same step captured with the masked read
+    of the whole cache in its place (one mask a forward, every layer's
+    cache widened to f32 under it: the step as it ran before the kernel),
+    at PARLER_ROW_POSITIONS, each the mean of REPLAYS replays (CUDA
+    events) in the order before, after, after, before."""
+    import torch
+
+    from tts_tpu_torch.models import parler as tp
+    from tts_tpu_torch.ops import attention as ta
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    config = GenerationConfig(top_k=50, seed=11)
+    after = runner._decode_step(config, runner.cross_kv)
+    check(after.graph is not None, "no captured graph of the rounds' key")
+    before = tp.ParlerStep(runner.params, runner.cfg, runner._cache, runner.cross_kv,
+                           runner._generator, runner.device, top_k=after.top_k,
+                           do_sample=after.do_sample, use_top_p=after.use_top_p, capture=True)
+    masks: dict = {}
+
+    def masked_read(q, k, v, pos, counters=None):
+        # the step before the kernel: one mask a forward (the capture makes
+        # its own), the whole cache read under it in every layer
+        key = (pos.data_ptr(), torch.cuda.is_current_stream_capturing())
+        if key not in masks:
+            key_pos = torch.arange(k.shape[0], device=k.device)
+            masks[key] = torch.where(key_pos[None, :] <= pos[:, None], 0.0, -1e9)
+        return ta.attend(q, k, v, masks[key])
+
+    kernel = tp.prefix_attention
+    tp.prefix_attention = masked_read
+    n = ta.prefix_attention.launches
+    try:
+        with torch.inference_mode():
+            before.load(tp.init_loop_state(runner.cfg), PARLER_ROW_POSITIONS[0],
+                        {"last": after.state["last"], "count": after.state["count"]})
+            before.run()                           # the eager step and the capture
+    finally:
+        tp.prefix_attention = kernel
+    check(before.graph is not None and ta.prefix_attention.launches == n,
+          "the masked-read step launched prefix_attention")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms: dict = {}
+    with torch.inference_mode():
+        for pos in PARLER_ROW_POSITIONS:
+            for label, step in (("before", before), ("after", after), ("after", after),
+                                ("before", before)):
+                step.pos.fill_(pos)
+                start.record()
+                for _ in range(REPLAYS):
+                    step.graph.replay()
+                end.record()
+                end.synchronize()
+                ms.setdefault(pos, {}).setdefault(label, []).append(
+                    start.elapsed_time(end) / REPLAYS)
+    out = {pos: {k: sum(v) / len(v) for k, v in m.items()} for pos, m in ms.items()}
+    print(f"[parler {qtype}] one graph row, device ms (before: the masked read captured in the "
+          f"kernel's place; after: prefix_attention), {REPLAYS} replays each, before, after, "
+          f"after, before: " + "; ".join(f"pos {p}: {m['before']:.3f} -> {m['after']:.3f}"
+                                        for p, m in out.items()))
+    del before
+    return out
+
+
 def parler_tiny_cuda_vs_cpu(qtype: str):
     """A 2-layer hidden-256 Parler with `qtype` linears (every decoder linear
     quantized, the cross-attention's too): the prompt prefill, 8
@@ -1619,9 +1772,9 @@ def ar_decode_rounds(runner, model: str, qtype: str) -> dict:
     of the eager and the graph route in alternating rounds (eager, graph,
     graph, eager) of one request of PARLER_MAX_TOKENS rows or DIA_MAX_TOKENS
     tokens through runner.generate at one seed, every round's rows equal and
-    the launches exact (Parler: the format's GEMV 192 per step and its GEMM
-    192 per prefill; Dia: the format's GEMM 162 per step and 36 per
-    encode; everything else 0); then a request with another temperature
+    the launches exact (Parler: the format's GEMV 192 and prefix_attention
+    24 per step and its GEMM 192 per prefill; Dia: the format's GEMM 162
+    per step and 36 per encode; everything else 0); then a request with another temperature
     and penalty on the same key (the same captured graph), graph then
     eager: equal to each other, not to the first config's; and the device
     ms of one graph replay (CUDA events over REPLAYS replays)."""
@@ -1677,7 +1830,8 @@ def ar_decode_rounds(runner, model: str, qtype: str) -> dict:
     gemv, gemm = PATH_KERNELS[qtype]
     want = dict.fromkeys(counts, 0)
     if model == "parler":
-        want.update({gemv: per * forwards["step"], gemm: per * len(rounds)})
+        want.update({gemv: per * forwards["step"], gemm: per * len(rounds),
+                     "prefix_attention": PARLER_LAYERS * forwards["step"]})
     else:
         want[gemm] = per * forwards["step"] + 2 * DIA_LAYERS * len(rounds)
     print(f"[{model} {qtype}] launches over the rounds (forwards {dict(forwards)}): {counts}")
@@ -1915,6 +2069,9 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
     check(counts[gemm] >= per * (4 + PARLER_MAX_TOKENS // 8) + 2 * PARLER_LAYERS,
           f"{gemm} launched {counts[gemm]} < 4 prefills, one greedy request's verify windows "
           f"and one cross-KV precompute")
+    check(counts["prefix_attention"] == PARLER_LAYERS * forwards["step"],
+          f"prefix_attention launched {counts['prefix_attention']}, not {PARLER_LAYERS} per "
+          f"sequential step ({dict(forwards)})")
     check(counts["flash_decode"] == 0, f"the Parler path launched flash_decode {counts}")
     for other in PATH_KERNELS.values():
         if other != (gemv, gemm):
@@ -1923,6 +2080,7 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
     print(f"max_memory_allocated during the requests {summary['max_memory_allocated_mib']:.0f} "
           f"MiB over what was allocated before the load (weights, cache, T5 while encoding)")
     summary["rounds"] = ar_decode_rounds(runner, "parler", qtype)
+    summary["row_before_after"] = parler_row_before_after(runner, qtype)
     summary["bracket"] = parler_bracket(runner, PARLER_TEXTS[1])
     prof = profile_request(runner, PARLER_TEXTS[0],
                            GenerationConfig(seed=1, top_k=50, max_tokens=PARLER_PROFILE_ROWS),
@@ -1935,13 +2093,14 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
     return counts, summary
 
 
-def parler() -> dict:
+def parler() -> tuple[dict, dict]:
     """Phase 7; returns the launch counts of each Parler path's served
-    requests."""
-    phase("7 Parler-TTS mini v1: tiny models, cuda against cpu")
+    requests, and prefix_attention's kernel record."""
+    phase("7 Parler-TTS mini v1: prefix_attention, tiny models cuda against cpu")
     import torch
 
     os.makedirs(MODEL_DIR, exist_ok=True)
+    attention = parler_attention()
     for qtype in QTYPES:
         parler_tiny_cuda_vs_cpu(qtype)
     paths, t5 = parler_models()
@@ -1953,7 +2112,7 @@ def parler() -> dict:
         counts[f"parler_{qtype}"], summary[qtype] = parler_server(paths[qtype], qtype, t5)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     print(json.dumps({"parler": summary}))
-    return counts
+    return counts, attention
 
 
 def _dia_staircase(cfg, rows):
@@ -2393,7 +2552,8 @@ def apps_cli_parler(card: str, path: str, qtype: str,
     --conditional-prompt.  Launches exact: the format's GEMV 192 per row
     (8 quantized linears in each of 24 layers; the default quantize keeps
     the cross-attention k/v dense, so the cross-KV and the T5 encoding run
-    no kernel) and its GEMM 192 per prefill; everything else 0."""
+    no kernel), prefix_attention 24 per row and its GEMM 192 per prefill;
+    everything else 0."""
     import torch
 
     wav = os.path.join(MODEL_DIR, f"apps_parler_{qtype}.wav")
@@ -2450,6 +2610,7 @@ def apps_cli_parler(card: str, path: str, qtype: str,
     gemv, gemm = PATH_KERNELS[qtype]
     want = {k: 0 for k in counts}
     want[gemv], want[gemm] = per * rows, per * len(runs)
+    want["prefix_attention"] = PARLER_LAYERS * rows
     print(f"launches over the cli's Parler {qtype} runs ({rows} rows, {len(runs)} prefills): "
           f"{counts}")
     check(counts == want, f"cli Parler {qtype}: launches {counts}, not {want}")
@@ -3355,7 +3516,9 @@ def main() -> int:
             orpheus_q8 = runner         # phase 10 cuts its params over tp = 2
         del runner
     counts["kokoro"] = kokoro()
-    counts.update(parler())
+    parler_counts, attention = parler()
+    counts.update(parler_counts)
+    results.append(attention)
     counts.update(dia())
     counts.update(apps(card, paths["Q4_0"]))
     counts.update(parallel(card, orpheus_q8, paths["Q4_0"]))
@@ -3363,7 +3526,8 @@ def main() -> int:
     del orpheus_q8
     bench(card)
     for r in results:
-        path = next((q for q, ks in PATH_KERNELS.items() if r["name"] in ks), QTYPES[0])
+        path = next((q for q, ks in PATH_KERNELS.items() if r["name"] in ks),
+                    "parler_Q4_0" if r["name"] == "prefix_attention" else QTYPES[0])
         r["launches"] = counts[path][r["name"]]
         r["launches_by_path"] = {q: c[r["name"]] for q, c in counts.items()}
     blocked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tts_tpu"))

@@ -1,7 +1,8 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the card,
-at the Orpheus-3B shapes and at Parler-TTS mini v1's and Dia-1.6B's, and
-Orpheus's decode step captured as one CUDA graph against its eager steps
-(tokens, other sampling values on one graph, launch counts).  Every
+at the Orpheus-3B shapes and at Parler-TTS mini v1's and Dia-1.6B's (Parler's
+decode-step self-attention among them), and Orpheus's decode step captured
+as one CUDA graph against its eager steps (tokens, other sampling values on
+one graph, launch counts).  Every
 test here needs a CUDA device and skips without one; the file imports no
 jax, so it runs where only the port does:
 
@@ -414,6 +415,118 @@ def test_wrappers_reject_what_the_kernels_cannot_take(cuda):
         ta.flash_decode(q, k, v, torch.tensor([5], dtype=torch.int32, device=cuda))  # counters
 
 
+# ---------------------------------------------------------------------------
+# Parler's decode-step self-attention (ops/attention.py prefix_attention,
+# csrc/prefix_attention.cu) at Parler-TTS mini v1's shapes: 16 heads of 64
+# over a position-major 4,096-slot cache, f32 against the plain masked read.
+# Only the order of summation differs (per 64-slot chunk, then across
+# chunks), so the stated bound is 1e-5 of max|out|.
+PA_H, PA_HS, PA_S = 16, 64, 4096
+PA_TOL = 1e-5
+PA_POSITIONS = [0, 63, 64, 511, 1000, 2047, 4095]
+
+
+def rand_prefix(pos, device, dtype=torch.bfloat16, past=None):
+    """q [1, 16, 64] f32 and a cache layer [4096, 16, 64] in `dtype`;
+    slots past pos hold `past` (NaN, say) if given."""
+    g = torch.Generator(device="cpu").manual_seed(1000 + pos)
+    q = torch.randn((1, PA_H, PA_HS), generator=g)
+    k = torch.randn((PA_S, PA_H, PA_HS), generator=g)
+    v = torch.randn((PA_S, PA_H, PA_HS), generator=g)
+    if past is not None:
+        k[pos + 1:] = past
+        v[pos + 1:] = past
+    pos_t = torch.tensor([pos], dtype=torch.int32)
+    return q.to(device), k.to(dtype).to(device), v.to(dtype).to(device), pos_t.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("pos", PA_POSITIONS)
+def test_prefix_attention_matches_plain(cuda, pos, dtype):
+    """One launch per call against the masked read of the whole cache (the
+    plain version, here on the card's f32 products, TF32 off)."""
+    q, k, v, pos_t = rand_prefix(pos, cuda, dtype)
+    counters = ta.arrival_counters(PA_H, cuda)
+    n = ta.prefix_attention.launches
+    got = ta.prefix_attention(q, k, v, pos_t, counters)
+    torch.cuda.synchronize()
+    assert ta.prefix_attention.launches == n + 1
+    assert got.shape == (1, PA_H * PA_HS) and got.dtype == torch.float32
+    assert rel_err(got, ta.prefix_attention_plain(q, k, v, pos_t)) < PA_TOL
+    assert not counters.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", PA_POSITIONS)
+def test_prefix_attention_reads_nothing_past_pos(cuda, pos):
+    """NaN in every slot past pos leaves the output finite and bit for bit
+    the output without it; two launches at one pos give equal bits."""
+    counters = ta.arrival_counters(PA_H, cuda)
+    clean = rand_prefix(pos, cuda)
+    poisoned = rand_prefix(pos, cuda, past=float("nan"))
+    a = ta.prefix_attention(*clean, counters)
+    b = ta.prefix_attention(*poisoned, counters)
+    c = ta.prefix_attention(*poisoned, counters)
+    torch.cuda.synchronize()
+    assert torch.isfinite(b).all()
+    assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 1000])
+def test_prefix_attention_is_one_kernel(cuda, pos):
+    """One device kernel per call, named apart from the matmul kernels that
+    qmatmul_roofline counts, on a grid of (heads, 64-slot chunks)."""
+    q, k, v, pos_t = rand_prefix(pos, cuda)
+    counters = ta.arrival_counters(PA_H, cuda)
+    acts = _ext.device_activity(lambda: ta.prefix_attention(q, k, v, pos_t, counters))
+    assert len(acts) == 1 and "prefix_attention_kernel" in acts[0]["name"], acts
+    assert not any(m in acts[0]["name"] for m in ("qgemv_kernel", "qgemm_kernel", "splitk_sum"))
+    assert acts[0]["grid"] == [PA_H, PA_S // ta.PA_CHUNK, 1], acts
+
+
+@pytest.mark.cuda
+def test_prefix_attention_graph_replays_equal_eager_calls(cuda):
+    """One capture replayed at three positions (pos moved on the device
+    between replays) gives the bits of an eager call at each, and the
+    arrival counters are back at zero after every replay."""
+    q, k, v, pos_t = rand_prefix(PA_S - 1, cuda)
+    counters = ta.arrival_counters(PA_H, cuda)
+    ta.prefix_attention(q, k, v, pos_t, counters)     # warm, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ta.prefix_attention(q, k, v, pos_t, counters)
+    for pos in (1000, 63, 4095):
+        pos_t.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        eager = ta.prefix_attention(q, k, v, pos_t, counters)
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager), pos
+        assert not counters.any(), pos
+
+
+@pytest.mark.cuda
+def test_prefix_attention_refuses_what_the_kernel_cannot_take(cuda):
+    """A head size other than 64, a cache that is no whole number of
+    chunks, missing counters or tensors on two devices raise before any
+    launch."""
+    q, k, v, pos_t = rand_prefix(5, cuda)
+    counters = ta.arrival_counters(PA_H, cuda)
+    n = ta.prefix_attention.launches
+    wide = torch.zeros((256, PA_H, 128), dtype=torch.bfloat16, device=cuda)
+    for args in ((q.repeat(1, 1, 2), wide, wide, pos_t, counters),
+                 (q, k[:100], v[:100], pos_t, counters),
+                 (q, k, v, pos_t, None),
+                 (q, k, v, pos_t.cpu(), counters)):
+        with pytest.raises(ValueError, match="prefix_attention"):
+            ta.prefix_attention(*args)
+    assert ta.prefix_attention.launches == n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
 @pytest.mark.parametrize("K,N", PARLER_SHAPES)
@@ -730,11 +843,12 @@ def test_ar_graph_takes_each_requests_values(cuda, tiny_ar, model, qtype):
 def test_ar_graph_launch_counts_are_exact(cuda, tiny_ar, model, qtype, monkeypatch):
     """Launch counters count what the card ran: over a first graph request
     (one eager step, the capture, replays) and a second (replays only),
-    Parler 16 GEMVs per row (8 linears in each of 2 layers; 192 at 24
-    layers) and 16 GEMMs per prefill; Dia 18 GEMMs per step (9 in each of 2
-    layers; 162 at 18) and 4 per request (the cross-KV); the capture itself
-    adds nothing, and flash_decode and the other format's kernels stay at
-    0."""
+    Parler 16 GEMVs and 2 prefix_attention per row (8 linears and one
+    self-attention in each of 2 layers; 192 and 24 at 24 layers) and 16
+    GEMMs per prefill; Dia 18 GEMMs per step (9 in each of 2 layers; 162
+    at 18) and 4 per request (the cross-KV); the capture itself adds
+    nothing, and flash_decode, the other format's kernels (and Dia's
+    prefix_attention) stay at 0."""
     from tts_tpu_torch.models import dia as td
     from tts_tpu_torch.models import parler as tp
     from tts_tpu_torch.models.registry import runner_from_file
@@ -747,7 +861,8 @@ def test_ar_graph_launch_counts_are_exact(cuda, tiny_ar, model, qtype, monkeypat
     runner = runner_from_file(tiny_ar(model, qtype), device="cuda")
     gemv, gemm = ((tq.qgemv_int8, tq.qgemm_int8) if qtype == "Q8_0"
                   else (tq.qgemv_int4, tq.qgemm_int4))
-    kernels = (tq.qgemv_int8, tq.qgemm_int8, tq.qgemv_int4, tq.qgemm_int4, ta.flash_decode)
+    kernels = (tq.qgemv_int8, tq.qgemm_int8, tq.qgemv_int4, tq.qgemm_int4, ta.flash_decode,
+               ta.prefix_attention)
     config = GenerationConfig(seed=1, top_k=50, max_tokens=40)
     for request in range(2):
         for k in kernels:
@@ -760,10 +875,42 @@ def test_ar_graph_launch_counts_are_exact(cuda, tiny_ar, model, qtype, monkeypat
         assert n >= resp.timings["decode_steps"] > 30
         want = {k: 0 for k in kernels}
         if model == "parler":
-            want[gemv], want[gemm] = 16 * n, 16
+            want[gemv], want[gemm], want[ta.prefix_attention] = 16 * n, 16, 2 * n
         else:
             want[gemm] = 18 * n + 4
         assert {k: k.launches for k in kernels} == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+def test_parler_step_reads_no_cache_slot_past_the_position(cuda, tiny_ar, qtype):
+    """The kernels, copies and memsets of one Parler decode step, read
+    from a CUDA graph captured around it: 2 prefix_attention launches (one
+    a layer) on a grid of (heads, 64-slot chunks) and 16 GEMVs, and
+    nothing else changes between a 512-slot and a 4,096-slot cache: no f32
+    copy of the cache, no mask and no cuBLAS product over it."""
+    import dataclasses
+
+    from tts_tpu_torch.models import parler as tp
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.ops.sampling import init_state
+
+    runner = runner_from_file(tiny_ar("parler", qtype), device="cuda")
+    acts = {}
+    for S in (512, 4096):
+        cfg = dataclasses.replace(runner.cfg, max_ctx_length=S)
+        cache = tp.init_kv_cache(cfg, cuda)
+        step = tp.ParlerStep(runner.params, cfg, cache, runner.cross_kv, None, cuda, top_k=0,
+                             do_sample=False, use_top_p=False)
+        with torch.inference_mode():
+            step.load(tp.init_loop_state(cfg), 20, init_state(cfg.n_output_heads, cuda))
+            acts[S] = [(a["name"], a["grid"]) for a in _ext.device_activity(step._step)]
+        grids = [g for name, g in acts[S] if "prefix_attention_kernel" in name]
+        assert grids == [[cfg.n_attn_heads, S // ta.PA_CHUNK, 1]] * cfg.n_layers, acts[S]
+        assert sum("qgemv_kernel" in name for name, _ in acts[S]) == 16, acts[S]
+        assert not cache["counters"].any()
+    rest = {S: [a for a in acts[S] if "prefix_attention_kernel" not in a[0]] for S in acts}
+    assert rest[512] == rest[4096]
 
 
 @pytest.mark.cuda

@@ -49,17 +49,8 @@ static_assert(2 * (TTS_FD_MAX_S / CHUNK) * MAXG * sizeof(float) <= CHUNK * 2 * H
               "the combine keeps every chunk's m and l of a head in the V rows' "
               "shared memory");
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using tts::warp_max;
+using tts::warp_sum;
 
 // 8 elements of a shared-memory cache row from element `d` -> floats
 template <bool INT8>

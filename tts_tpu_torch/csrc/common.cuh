@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: vector unpacking of int8 and bf16
-// values into f32 registers, asynchronous copies, tensor-core products.
+// values into f32 registers, warp reductions, asynchronous copies,
+// tensor-core products.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +32,19 @@ __device__ __forceinline__ void unpack_bf16x4(const uint2 v, float f[4]) {
   f[1] = __uint_as_float(v.x & 0xffff0000u);
   f[2] = __uint_as_float(v.y << 16);
   f[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// the max and the sum of v over the 32 lanes of a warp, in every lane
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // round-to-nearest-even to bf16, returned as the f32 it represents

@@ -10,13 +10,16 @@ int8 or packed int4 by `ops.qmatmul.linear_format`'s rule and run through
 the hand-written kernels of `ops/qmatmul.py` (`apply_linear`): the GEMVs at
 M = 1 (every sequential decode step), the GEMMs at M > 1 (the prompt
 prefill, the cross-KV precompute, the speculative verify).  Quantized
-checkpoints keep the KV cache and the heads in bf16.  Self- and
-cross-attention are plain torch products (no Pallas kernel served them on
-the TPU either).  A decode step (T = 1) runs at a device position and
-reads the whole cache under the JAX package's additive -1e9 mask, so it
-has one shape at every position; the prefill and the verify window read
-the live prefix only, which computes the same function (a masked key
-weighs exactly 0 in f32).
+checkpoints keep the KV cache and the heads in bf16.  Cross-attention,
+and self-attention in the prefill and the verify window, are plain torch
+products over the live prefix (no Pallas kernel served them on the TPU
+either).  A decode step (T = 1) runs at a device position and has one
+shape at every position: its self-attention is `ops.attention.
+prefix_attention`, on the card one hand-written kernel a layer that reads
+the position on the device and each live K/V row once, in place in the
+cache's dtype, in f32 arithmetic; on the CPU the JAX package's read of
+the whole cache under the additive -1e9 mask.  All compute the same
+function (a masked key weighs exactly 0 in f32).
 
 A sequential step is one `ParlerStep`, the body of the JAX package's
 `parler_decode_loop`: the row embedded at the device position, the body,
@@ -39,7 +42,6 @@ prompt length.
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from dataclasses import dataclass
 
@@ -50,6 +52,7 @@ import torch.nn.functional as F
 from tts_tpu_torch.codecs.dac import DACDecoder
 from tts_tpu_torch.core.gguf import GGMLType, GGUFFile, GGUFTensor
 from tts_tpu_torch.models.registry import register_loader
+from tts_tpu_torch.ops.attention import arrival_counters, attend, prefix_attention
 from tts_tpu_torch.ops.qmatmul import apply_linear, load_linear
 from tts_tpu_torch.ops.sampling import init_state, sample_tokens
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_draft_rows, spec_enabled
@@ -181,12 +184,15 @@ def parler_params_quantized(params) -> bool:
 
 
 def init_kv_cache(cfg: ParlerConfig, device=None) -> dict:
-    """Position-major K/V [L, max_ctx, H, hs] in cfg.kv_dtype."""
+    """Position-major K/V [L, max_ctx, H, hs] in cfg.kv_dtype, and the
+    decode step's `prefix_attention` arrival counters [H] of this cache,
+    which every layer's launch leaves at zero."""
     device = card_device(device)
     shape = (cfg.n_layers, cfg.max_ctx_length, cfg.n_attn_heads, cfg.head_size)
     dt = getattr(torch, cfg.kv_dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "counters": arrival_counters(cfg.n_attn_heads, device)}
 
 
 def precompute_cross_kv(params: dict, cfg: ParlerConfig) -> dict:
@@ -208,16 +214,6 @@ def _ln(x, w, b, eps: float = 1e-5):
     return F.layer_norm(x, x.shape[-1:], w, b, eps)
 
 
-def _attend(q, k, v, mask, hs: int):
-    """q [T, H, hs] f32 against k/v [n, H, hs] -> [T, H * hs] f32, as
-    batched products over the heads (fewer host ops than einsum's)."""
-    logits = torch.matmul(q.transpose(0, 1), k.float().permute(1, 2, 0)) / math.sqrt(hs)
-    if mask is not None:
-        logits = logits + mask
-    w = torch.softmax(logits, dim=-1)                              # [H, T, n]
-    return torch.matmul(w, v.float().transpose(0, 1)).transpose(0, 1).reshape(q.shape[0], -1)
-
-
 def _transformer(params: dict, cfg: ParlerConfig, x: torch.Tensor, cache: dict,
                  start_pos, cross_kv: dict | None) -> torch.Tensor:
     """x [T, hidden] -> final-normed [T, hidden], writing K/V in place.
@@ -226,22 +222,23 @@ def _transformer(params: dict, cfg: ParlerConfig, x: torch.Tensor, cache: dict,
     start_pos.. and attends causally over the live prefix [0, start_pos +
     T).  T == 1 (a decode step) runs at the device position start_pos (an
     int32 tensor [1]; an int is made one): K/V are written at that slot
-    with index_copy_ and self-attention reads all cfg.max_ctx_length slots
-    under the JAX package's additive mask, 0 where key_pos <= pos and -1e9
-    past it, so the step has one shape at every position and a captured
-    graph of it serves them all.  A masked key weighs exp(-1e9 - max) = 0
-    exactly in f32 while its logit is finite, which holds: the cache is
-    zeroed when made and every slot past pos holds K/V an earlier forward
-    wrote from finite activations (a non-finite one would have shown in
-    that forward's own logits), so what earlier requests left there
-    changes nothing."""
+    with index_copy_ and self-attention is `prefix_attention` over the
+    cache layer, so the step has one shape at every position and a
+    captured graph of it serves them all.  On the card that is one kernel
+    launch a layer reading only the slots <= pos, each byte once in the
+    cache's dtype (no f32 copy of the cache, no mask); on the CPU it reads
+    all cfg.max_ctx_length slots under the JAX package's additive mask, 0
+    where key_pos <= pos and -1e9 past it.  A masked key weighs exp(-1e9 -
+    max) = 0 exactly in f32 while its logit is finite, which holds: the
+    cache is zeroed when made and every slot past pos holds K/V an earlier
+    forward wrote from finite activations (a non-finite one would have
+    shown in that forward's own logits), so what earlier requests left
+    there changes nothing."""
     H, hs = cfg.n_attn_heads, cfg.head_size
     T = x.shape[0]
     if T == 1:
         pos = device_pos(start_pos, x.device)
         slot = pos.long()
-        key_pos = torch.arange(cfg.max_ctx_length, device=x.device)
-        mask = torch.where(key_pos[None, :] <= pos[:, None], 0.0, -1e9)
     else:
         end = start_pos + T
         key_pos = torch.arange(end, device=x.device)
@@ -255,18 +252,17 @@ def _transformer(params: dict, cfg: ParlerConfig, x: torch.Tensor, cache: dict,
         if T == 1:
             ck.index_copy_(0, slot, k)
             cv.index_copy_(0, slot, v)
-            keys, values = ck, cv
         else:
             ck[start_pos:end] = k
             cv[start_pos:end] = v
-            keys, values = ck[:end], cv[:end]
         q = apply_linear(h, L["sa_q"]).reshape(T, H, hs)
-        x = x + apply_linear(_attend(q, keys, values, mask, hs), L["sa_o"])
+        a = (prefix_attention(q, ck, cv, pos, cache.get("counters")) if T == 1
+             else attend(q, ck[:end], cv[:end], mask))
+        x = x + apply_linear(a, L["sa_o"])
         if cross_kv is not None:
             h = _ln(x, L["ca_norm_w"], L["ca_norm_b"])
             q = apply_linear(h, L["ca_q"]).reshape(T, H, hs)
-            x = x + apply_linear(_attend(q, cross_kv["k"][l], cross_kv["v"][l], None, hs),
-                                 L["ca_o"])
+            x = x + apply_linear(attend(q, cross_kv["k"][l], cross_kv["v"][l], None), L["ca_o"])
         h = _ln(x, L["out_norm_w"], L["out_norm_b"])
         h = apply_linear(F.gelu(apply_linear(h, L["fc1"]), approximate="tanh"), L["fc2"])
         x = x + h

@@ -49,6 +49,8 @@ GEOMETRY = {
     "FD_CHUNK": 64,           # flash_decode: cache positions per CTA
     "FD_MAX_G": 4,            # flash_decode: query heads per KV head, at most
     "FD_MAX_S": 32768,        # flash_decode: cache positions, at most
+    "PA_CHUNK": 64,           # prefix_attention: cache positions per CTA
+    "PA_MAX_S": 32768,        # prefix_attention: cache positions, at most
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,6 +72,9 @@ SIGNATURES = {
     # out, Hq, Hkv, S, kv_int8, scale, stream
     "flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _F, _P),
+    # q, k, v, pos, counters, part_m, part_l, part_acc, out, H, S,
+    # elem_bytes, scale, stream
+    "prefix_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 # device_activity: the graph node types it reports (cuda.h CUgraphNodeType),

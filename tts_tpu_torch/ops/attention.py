@@ -1,13 +1,21 @@
-"""Single-token GQA decode attention (flash-decode) and int8 KV quantization.
+"""Single-token decode attention (Orpheus's GQA flash-decode, Parler's
+prefix read) and int8 KV quantization.
 
 Counterpart of `tts_tpu/ops/attention.py`.  `flash_decode` is the wrapper of
 the hand-written Hopper kernel (csrc/attention.cu), which replaces the TPU's
 `_decode_attn_dyn_kernel`; `flash_decode_plain` is its plain PyTorch version,
 the same chunked online softmax with bf16 rounding in the same places, and
-runs only for tensors on the CPU.
+runs only for tensors on the CPU.  `prefix_attention` is the wrapper of
+csrc/prefix_attention.cu, Parler's decode-step self-attention in f32 over
+the live prefix of its position-major cache (no TPU kernel: the JAX package
+reads the whole cache under a mask there); its plain version,
+`prefix_attention_plain`, is that masked read, with `attend`, the plain
+attention Parler runs everywhere else.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -117,6 +125,107 @@ def flash_decode(q, k_cache, v_cache, pos, k_scale=None, v_scale=None, counters=
 
 
 flash_decode.launches = 0
+
+
+def attend(q, k, v, mask):
+    """q [T, H, hs] f32 against k/v [n, H, hs] (any float dtype, read as
+    f32) under an additive mask [T, n] (or None) -> [T, H * hs] f32, as
+    batched products over the heads (fewer host ops than einsum's)."""
+    logits = torch.matmul(q.transpose(0, 1), k.float().permute(1, 2, 0)) / math.sqrt(q.shape[-1])
+    if mask is not None:
+        logits = logits + mask
+    w = torch.softmax(logits, dim=-1)                              # [H, T, n]
+    return torch.matmul(w, v.float().transpose(0, 1)).transpose(0, 1).reshape(q.shape[0], -1)
+
+
+def prefix_attention_plain(q, k_cache, v_cache, pos):
+    """The read the kernel replaces, as the JAX package's decode step makes
+    it: q [1, H, hs] against every slot of [S, H, hs] under the additive
+    mask, 0 where key_pos <= pos and -1e9 past it -> [1, H * hs] f32.  A
+    masked key weighs exactly 0 in f32 while its logit is finite."""
+    key_pos = torch.arange(k_cache.shape[0], device=q.device)
+    mask = torch.where(key_pos[None, :] <= pos[:, None], 0.0, -1e9)
+    return attend(q, k_cache, v_cache, mask)
+
+
+PA_CHUNK = _ext.GEOMETRY["PA_CHUNK"]          # positions per CTA of the prefix kernel
+_PA_MAX_S = _ext.GEOMETRY["PA_MAX_S"]         # cache positions, at most
+PA_HEAD_SIZE = 64                             # the kernel's head size (Parler's)
+_PA_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
+
+
+def _prefix_checks(q, k_cache, v_cache, pos):
+    """What both routes need: q [1, H, hs] f32, one layer of the cache
+    [S, H, hs] in bf16 or f32 twice, pos int32 [1], all contiguous."""
+    if q.dim() != 3 or q.shape[0] != 1 or k_cache.dim() != 3:
+        raise ValueError(f"prefix_attention: needs q [1, H, hs] and a cache layer [S, H, hs]; "
+                         f"got q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
+    if k_cache.shape != v_cache.shape or k_cache.shape[1:] != q.shape[1:]:
+        raise ValueError(f"prefix_attention: q {tuple(q.shape)}, k {tuple(k_cache.shape)} "
+                         f"and v {tuple(v_cache.shape)} disagree on [H, hs]")
+    if (q.dtype != torch.float32 or k_cache.dtype not in _PA_DTYPES
+            or v_cache.dtype != k_cache.dtype):
+        raise ValueError(f"prefix_attention: q f32 and a bf16 or f32 cache; got q {q.dtype}, "
+                         f"k {k_cache.dtype}, v {v_cache.dtype}")
+    if pos.dtype != torch.int32 or pos.shape != (1,):
+        raise ValueError(f"prefix_attention: pos must be an int32 tensor [1]; got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+    if not all(t.is_contiguous() for t in (q, k_cache, v_cache)):
+        raise ValueError("prefix_attention: q and the cache layer must be contiguous "
+                         "(position-major [S, H, hs])")
+
+
+def prefix_card_checks(q, k_cache, v_cache, pos, counters):
+    """What the kernel needs beyond `_prefix_checks`: head size 64, S a
+    multiple of its chunk up to its limit, the cache's arrival counters
+    (int32 [>= H]), one device, 16-byte aligned cache rows (asynchronous
+    copies)."""
+    S, H, hs = k_cache.shape
+    if hs != PA_HEAD_SIZE or S % PA_CHUNK or S > _PA_MAX_S:
+        raise ValueError(f"prefix_attention: needs head size {PA_HEAD_SIZE}, S % {PA_CHUNK} == 0 "
+                         f"and S <= {_PA_MAX_S}; got cache {tuple(k_cache.shape)}")
+    if counters is None:
+        raise ValueError("prefix_attention: on the card it needs the KV cache's arrival "
+                         "counters (arrival_counters(H, device))")
+    if counters.dtype != torch.int32 or counters.numel() < H or not counters.is_contiguous():
+        raise ValueError(f"prefix_attention: counters must be int32 [>= {H}], contiguous")
+    if any(t.device != q.device for t in (k_cache, v_cache, pos, counters)):
+        raise ValueError("prefix_attention: all tensors must be on one device")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("prefix_attention: the cache must start 16-byte aligned "
+                         "(asynchronous copies)")
+
+
+def prefix_attention(q, k_cache, v_cache, pos, counters=None):
+    """Parler's decode-step self-attention: q [1, H, hs] f32 against one
+    layer of its position-major cache [S, H, hs] (bf16, or f32 for a dense
+    checkpoint) over the positions <= pos, pos an int32 tensor [1] on q's
+    device -> [1, H * hs] f32.  On the card one launch reads pos on the
+    device and only the live rows, in f32 throughout; it needs the cache's
+    `arrival_counters(H)` (the last CTA of each head to finish combines the
+    head's chunks).  CPU tensors take the plain masked read and ignore the
+    counters."""
+    _prefix_checks(q, k_cache, v_cache, pos)
+    if not q.is_cuda:
+        return prefix_attention_plain(q, k_cache, v_cache, pos)
+    prefix_card_checks(q, k_cache, v_cache, pos, counters)
+    S, H, hs = k_cache.shape
+    nchunks = S // PA_CHUNK
+    part_m = torch.empty((H, nchunks), device=q.device)
+    part_l = torch.empty((H, nchunks), device=q.device)
+    part_acc = torch.empty((H, nchunks, hs), device=q.device)
+    out = torch.empty((1, H * hs), device=q.device)
+    err = _ext.load().prefix_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        counters.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), H, S, _PA_DTYPES[k_cache.dtype], 1.0 / math.sqrt(hs),
+        _ext.stream_ptr(q))
+    prefix_attention.launches += 1
+    _ext.check("prefix_attention", err)
+    return out
+
+
+prefix_attention.launches = 0
 
 
 def quantize_kv(x: torch.Tensor):

@@ -32,7 +32,7 @@ import collections
 
 import torch
 
-from tts_tpu_torch.ops.attention import flash_decode
+from tts_tpu_torch.ops.attention import flash_decode, prefix_attention
 from tts_tpu_torch.ops.qmatmul import qgemm_int4, qgemm_int8, qgemv_int4, qgemv_int8
 from tts_tpu_torch.ops.sampling import sample_tokens
 from tts_tpu_torch.runtime.api import TTSError
@@ -40,7 +40,7 @@ from tts_tpu_torch.utils import trace
 
 # the kernel wrappers whose `.launches` a graph replay adds to (what the
 # capture launched: a replay calls no wrapper)
-KERNELS = (qgemv_int8, qgemm_int8, qgemv_int4, qgemm_int4, flash_decode)
+KERNELS = (qgemv_int8, qgemm_int8, qgemv_int4, qgemm_int4, flash_decode, prefix_attention)
 
 
 class CapturedStep:
