@@ -100,8 +100,14 @@ Phases (any failure exits non-zero, before the final line):
      300, 1,000 and 2,000; the greedy bracket: speculative, force_miss and
      sequential (graph) rows/s after one prefill, and where the rows part;
      and a profiled graph-route request (device busy share)
-  8. Dia-1.6B, which runs the format's GEMM alone (the CFG pair makes every
-     decode step M = 2): tiny Q8_0 and Q4_0 models' CUDA forwards (8 steps
+  8. Dia-1.6B, which runs the format's GEMM (the CFG pair makes every
+     decode step M = 2) and prefix_attention's head-major GQA instance (its
+     decode step's self-attention): prefix_attention against its plain
+     version (Dia's masked read of the whole cache) at the CFG pair of 16
+     query heads over 4 KV heads of 128 in 3,072 slots, pos 63-3,071,
+     timed from CUDA-graph replays beside its bound and
+     scaled_dot_product_attention (enable_gqa) on the same live bf16 rows;
+     tiny Q8_0 and Q4_0 models' CUDA forwards (8 steps
      at a device position, one 8-row verify at M = 16), cross-KV and DAC
      against the CPU, and their sampled and greedy rows on the graph route
      (one captured DiaStep per key) equal to the eager route's; then
@@ -112,9 +118,11 @@ Phases (any failure exits non-zero, before the final line):
      (TTFA) and a second sampled request, 256 tokens each (wall, steps/s,
      route, RTF, load s, peak memory); the launch counts must be exact: the
      format's GEMM 36 per request (the cross-KV) plus 162 per step and per
-     verify window, the GEMVs, flash_decode and the other GEMM 0; then the
-     decode rounds as in phase 7 (steps/s), the greedy bracket and one
-     profiled graph-route request
+     verify window, prefix_attention 18 per sequential step, the GEMVs,
+     flash_decode and the other GEMM 0; then the decode rounds as in phase
+     7 (steps/s, and one step's device ms with the masked read captured in
+     the kernel's place and as it runs at pos 300, 1,000 and 2,000), the
+     greedy bracket and one profiled graph-route request
   9. the apps on the card: a seeded random full-width f32 Parler-TTS mini v1
      quantized to Q4_0 and Q8_0 by `python -m tts_tpu_torch.apps.quantize`
      (the printed counts held to the Parler rule's, host seconds); the cli
@@ -256,6 +264,15 @@ PARLER_ATTN_TOL = 1e-5
 # positions at which phase 7 times one graph row with the kernel and with
 # the masked read captured in its place
 PARLER_ROW_POSITIONS = (300, 1000, 2000)
+# phase 8's prefix_attention rows: Dia-1.6B's self-attention (the CFG pair
+# of 16 query heads over 4 KV heads of 128, a head-major 3,072-slot bf16
+# cache, unscaled), at these positions, against the masked read of the whole
+# cache; the sums differ in order only
+DIA_ATTN = (2, 4, 4, 128, 3072)          # (B, Hkv, G, hs, S)
+DIA_ATTN_POSITIONS = (63, 511, 1023, 2047, 3071)
+# positions at which phase 8 times one graph step with the kernel and with
+# the masked read captured in its place
+DIA_STEP_POSITIONS = (300, 1000, 2000)
 PARLER_MAX_TOKENS = 256            # rows per request: random heads never stop
 PARLER_PROFILE_ROWS = 48           # rows of the sampled request profiled
 PARLER_TEXTS = ("Hello from Parler on the card.", "A greedy request on the speculative path.",
@@ -1500,22 +1517,68 @@ def tiny_graph_vs_eager(r, model: str, text: str):
           f"eager route's at one seed, captured {captured}")
 
 
-def parler_attention() -> dict:
-    """Phase 7's kernel rows: prefix_attention (Parler's decode-step
-    self-attention) at Parler-TTS mini v1's shapes, 16 heads of 64 over a
-    position-major 4,096-slot bf16 cache, at PARLER_ATTN_POSITIONS: against
-    its plain version (the masked read of the whole cache, here on the
-    card) within PARLER_ATTN_TOL of max|out|, one device kernel per call,
+def prefix_attention_rows(label: str, q, k, v, counters, positions, scale, library,
+                          kv_per_pos: int) -> list:
+    """prefix_attention's kernel rows for one model's layout: q against the
+    layers' caches k and v ([layers, ...] bf16) at `positions`: against its
+    plain version (the masked read of the whole cache, here on the card)
+    within PARLER_ATTN_TOL of max|out|, one device kernel per call,
     identical bits twice; device times from CUDA-graph replays (plain,
-    kernel, library, library, kernel, plain) cycling through 24 layers'
-    caches (403 MB per K and V: the live rows come from HBM past pos ~256,
-    as in a decode row), beside the bound (the live K/V, q and out over
-    3.35 TB/s) and scaled_dot_product_attention on the same live bf16 rows
-    (bf16 q: the library yardstick, which the port never calls).  Returns
-    the kernel's record for the kernels JSON line."""
+    kernel, library, library, kernel, plain) cycling through the layers'
+    caches, so that past a few hundred positions the live rows come from
+    HBM, as in a decode step, beside the bound (the live K/V, q and out over
+    3.35 TB/s) and `library(layer, pos)`, scaled_dot_product_attention on
+    the same live bf16 rows (bf16 q: the library yardstick, which the port
+    never calls).  kv_per_pos: K elements a position."""
     import torch
 
     from tts_tpu_torch.ops import _ext
+    from tts_tpu_torch.ops import attention as ta
+
+    layers = k.shape[0]
+    rows = []
+    for pos in positions:
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=q.device)
+        want = ta.prefix_attention_plain(q, k[0], v[0], pos_t, scale)
+        got = ta.prefix_attention(q, k[0], v[0], pos_t, counters, scale)
+        a, r = rel_err(got, want)
+        names = [e["name"] for e in _ext.device_activity(
+            lambda: ta.prefix_attention(q, k[0], v[0], pos_t, counters, scale))]
+        check(len(names) == 1 and "prefix_attention_kernel" in names[0],
+              f"prefix_attention {label} pos={pos}: device kernels per call {names}")
+        check(torch.equal(got, ta.prefix_attention(q, k[0], v[0], pos_t, counters, scale)),
+              f"prefix_attention {label} pos={pos}: two calls differ")
+        fns = {"plain": lambda j: ta.prefix_attention_plain(q, k[j % layers], v[j % layers],
+                                                            pos_t, scale),
+               "kernel": lambda j: ta.prefix_attention(q, k[j % layers], v[j % layers], pos_t,
+                                                       counters, scale),
+               "library": lambda j: library(j % layers, pos)}
+        _, lr = rel_err(fns["library"](0).reshape(want.shape), want)
+        t = timed(fns, {"plain": 3, "kernel": 2 * layers, "library": 2 * layers})
+        nbytes = (pos + 1) * kv_per_pos * 2 * 2 + 2 * q.numel() * 4
+        rows.append({"shape": f"{label} pos={pos}", "abs": a, "rel": r,
+                     "ms": t["kernel"], "plain_ms": t["plain"],
+                     "bound_ms": bound(nbytes, 4 * q.numel() * (pos + 1))[0], "bound_by": "bytes",
+                     "library_ms": t["library"], "library_rel": lr, "device_kernels": 1})
+        gbs = nbytes / (t["kernel"] * 1e-3) / 1e9
+        print(f"prefix_attention bf16 {label} pos={pos:4d}  rel_err {r:.2e} (tol "
+              f"{PARLER_ATTN_TOL:.0e})  kernel {t['kernel'] * 1e3:6.2f} us  plain "
+              f"{t['plain'] * 1e3:8.1f} us  library {t['library'] * 1e3:6.2f} us  bound "
+              f"{rows[-1]['bound_ms'] * 1e3:5.2f} us  {gbs:7.1f} GB/s  1 device kernel per call  "
+              f"(library rel_err {lr:.1e}, bf16 q)")
+        check(r < PARLER_ATTN_TOL, f"prefix_attention {label} pos={pos}: rel err {r} >= "
+              f"{PARLER_ATTN_TOL}")
+    check(not counters.any(), f"prefix_attention left its counters at {counters.tolist()}")
+    return rows
+
+
+def parler_attention() -> list:
+    """Phase 7's kernel rows: prefix_attention (Parler's decode-step
+    self-attention) at Parler-TTS mini v1's shapes, 16 heads of 64 over a
+    position-major 4,096-slot bf16 cache, 24 layers' caches (403 MB per K
+    and V), at PARLER_ATTN_POSITIONS (`prefix_attention_rows`)."""
+    import torch
+
     from tts_tpu_torch.ops import attention as ta
 
     dev = torch.device("cuda")
@@ -1524,100 +1587,76 @@ def parler_attention() -> dict:
     k = torch.randn((PARLER_LAYERS, S, H, hs), generator=g, device=dev).bfloat16()
     v = torch.randn((PARLER_LAYERS, S, H, hs), generator=g, device=dev).bfloat16()
     q = torch.randn((1, H, hs), generator=g, device=dev)
-    counters = ta.arrival_counters(H, dev)
+    qb = q.bfloat16().transpose(0, 1)[None]                          # [1, H, 1, hs]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = []
-    for pos in PARLER_ATTN_POSITIONS:
-        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
-        want = ta.prefix_attention_plain(q, k[0], v[0], pos_t)
-        got = ta.prefix_attention(q, k[0], v[0], pos_t, counters)
-        a, r = rel_err(got, want)
-        names = [e["name"] for e in _ext.device_activity(
-            lambda: ta.prefix_attention(q, k[0], v[0], pos_t, counters))]
-        check(len(names) == 1 and "prefix_attention_kernel" in names[0],
-              f"prefix_attention pos={pos}: device kernels per call {names}")
-        check(torch.equal(got, ta.prefix_attention(q, k[0], v[0], pos_t, counters)),
-              f"prefix_attention pos={pos}: two calls differ")
-        qb = q.bfloat16().transpose(0, 1)[None]                      # [1, H, 1, hs]
-        fns = {"plain": lambda j: ta.prefix_attention_plain(q, k[j % PARLER_LAYERS],
-                                                            v[j % PARLER_LAYERS], pos_t),
-               "kernel": lambda j: ta.prefix_attention(q, k[j % PARLER_LAYERS],
-                                                       v[j % PARLER_LAYERS], pos_t, counters),
-               "library": lambda j: sdpa(qb, k[j % PARLER_LAYERS, :pos + 1].transpose(0, 1)[None],
-                                         v[j % PARLER_LAYERS, :pos + 1].transpose(0, 1)[None])}
-        _, lr = rel_err(fns["library"](0).reshape(1, H * hs), want)
-        t = timed(fns, {"plain": 3, "kernel": 2 * PARLER_LAYERS, "library": 2 * PARLER_LAYERS})
-        nbytes = (pos + 1) * H * hs * 2 * 2 + 2 * H * hs * 4
-        rows.append({"shape": f"H={H} hs={hs} S={S} pos={pos}", "abs": a, "rel": r,
-                     "ms": t["kernel"], "plain_ms": t["plain"],
-                     "bound_ms": bound(nbytes, 4 * H * (pos + 1) * hs)[0], "bound_by": "bytes",
-                     "library_ms": t["library"], "library_rel": lr, "device_kernels": 1})
-        gbs = nbytes / (t["kernel"] * 1e-3) / 1e9
-        print(f"prefix_attention bf16 H={H} hs={hs} pos={pos:4d}  rel_err {r:.2e} (tol "
-              f"{PARLER_ATTN_TOL:.0e})  kernel {t['kernel'] * 1e3:6.2f} us  plain "
-              f"{t['plain'] * 1e3:8.1f} us  library {t['library'] * 1e3:6.2f} us  bound "
-              f"{rows[-1]['bound_ms'] * 1e3:5.2f} us  {gbs:7.1f} GB/s  1 device kernel per call  "
-              f"(library rel_err {lr:.1e}, bf16 q)")
-        check(r < PARLER_ATTN_TOL, f"prefix_attention pos={pos}: rel err {r} >= "
-              f"{PARLER_ATTN_TOL}")
-    check(not counters.any(), f"prefix_attention left its counters at {counters.tolist()}")
+
+    def library(layer, pos):
+        return sdpa(qb, k[layer, :pos + 1].transpose(0, 1)[None],
+                    v[layer, :pos + 1].transpose(0, 1)[None])
+
+    rows = prefix_attention_rows(f"H={H} hs={hs} S={S}", q, k, v, ta.arrival_counters(H, dev),
+                                 PARLER_ATTN_POSITIONS, None, library, H * hs)
     del k, v
     torch.cuda.empty_cache()
+    return rows
+
+
+def dia_attention() -> list:
+    """Phase 8's kernel rows: prefix_attention's head-major GQA instance
+    (Dia's decode-step self-attention) at Dia-1.6B's shapes, the CFG pair
+    of 16 query heads over 4 KV heads of 128 in a head-major 3,072-slot bf16
+    cache, scale 1.0, 18 layers' caches (113 MB per K and V), at
+    DIA_ATTN_POSITIONS (`prefix_attention_rows`; the library call is
+    scaled_dot_product_attention with enable_gqa)."""
+    import torch
+
+    from tts_tpu_torch.ops import attention as ta
+
+    dev = torch.device("cuda")
+    B, Hkv, G, hs, S = DIA_ATTN
+    g = torch.Generator(device=dev).manual_seed(21)
+    k = torch.randn((DIA_LAYERS, B, Hkv, S, hs), generator=g, device=dev).mul_(0.3).bfloat16()
+    v = torch.randn((DIA_LAYERS, B, Hkv, S, hs), generator=g, device=dev).bfloat16()
+    q = torch.randn((B, Hkv * G, hs), generator=g, device=dev)
+    qb = q.bfloat16()[:, :, None]                                    # [B, Hq, 1, hs]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(layer, pos):
+        return sdpa(qb, k[layer, :, :, :pos + 1], v[layer, :, :, :pos + 1], scale=1.0,
+                    enable_gqa=True)
+
+    rows = prefix_attention_rows(f"Dia B={B} Hkv={Hkv} G={G} hs={hs} S={S}", q, k, v,
+                                 ta.arrival_counters(B * Hkv, dev), DIA_ATTN_POSITIONS, 1.0,
+                                 library, B * Hkv * hs)
+    del k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def prefix_attention_record(rows: list) -> dict:
+    """prefix_attention's record for the kernels JSON line, from phase 7's
+    (Parler) and phase 8's (Dia) rows."""
     return {"name": "prefix_attention", "route": "cuda",
             "source": "tts_tpu_torch/csrc/prefix_attention.cu",
-            "replaces": "none (tts_tpu/models/parler.py::_transformer's masked read, plain jnp)",
+            "replaces": "none (the masked reads of tts_tpu/models/parler.py::_transformer and "
+                        "tts_tpu/models/dia.py::_dia_step, plain jnp)",
             "max_abs_err": max(r["abs"] for r in rows), "max_rel_err": max(r["rel"] for r in rows),
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
             "library_ms": sum(r["library_ms"] for r in rows), "rows": rows}
 
 
-def parler_row_before_after(runner, qtype: str) -> dict:
-    """One graph row's device ms, before and after: the runner's own step
-    (prefix_attention) against the same step captured with the masked read
-    of the whole cache in its place (one mask a forward, every layer's
-    cache widened to f32 under it: the step as it ran before the kernel),
-    at PARLER_ROW_POSITIONS, each the mean of REPLAYS replays (CUDA
-    events) in the order before, after, after, before."""
+def replay_before_after(before, after, positions, tag: str) -> dict:
+    """One graph replay's device ms of the step `before` (the masked read
+    captured in the kernel's place) and of `after` (the runner's own step),
+    at each position, each the mean of REPLAYS replays (CUDA events) in the
+    order before, after, after, before."""
     import torch
 
-    from tts_tpu_torch.models import parler as tp
-    from tts_tpu_torch.ops import attention as ta
-    from tts_tpu_torch.runtime.api import GenerationConfig
-
-    config = GenerationConfig(top_k=50, seed=11)
-    after = runner._decode_step(config, runner.cross_kv)
-    check(after.graph is not None, "no captured graph of the rounds' key")
-    before = tp.ParlerStep(runner.params, runner.cfg, runner._cache, runner.cross_kv,
-                           runner._generator, runner.device, top_k=after.top_k,
-                           do_sample=after.do_sample, use_top_p=after.use_top_p, capture=True)
-    masks: dict = {}
-
-    def masked_read(q, k, v, pos, counters=None):
-        # the step before the kernel: one mask a forward (the capture makes
-        # its own), the whole cache read under it in every layer
-        key = (pos.data_ptr(), torch.cuda.is_current_stream_capturing())
-        if key not in masks:
-            key_pos = torch.arange(k.shape[0], device=k.device)
-            masks[key] = torch.where(key_pos[None, :] <= pos[:, None], 0.0, -1e9)
-        return ta.attend(q, k, v, masks[key])
-
-    kernel = tp.prefix_attention
-    tp.prefix_attention = masked_read
-    n = ta.prefix_attention.launches
-    try:
-        with torch.inference_mode():
-            before.load(tp.init_loop_state(runner.cfg), PARLER_ROW_POSITIONS[0],
-                        {"last": after.state["last"], "count": after.state["count"]})
-            before.run()                           # the eager step and the capture
-    finally:
-        tp.prefix_attention = kernel
-    check(before.graph is not None and ta.prefix_attention.launches == n,
-          "the masked-read step launched prefix_attention")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     ms: dict = {}
     with torch.inference_mode():
-        for pos in PARLER_ROW_POSITIONS:
+        for pos in positions:
             for label, step in (("before", before), ("after", after), ("after", after),
                                 ("before", before)):
                 step.pos.fill_(pos)
@@ -1629,10 +1668,102 @@ def parler_row_before_after(runner, qtype: str) -> dict:
                 ms.setdefault(pos, {}).setdefault(label, []).append(
                     start.elapsed_time(end) / REPLAYS)
     out = {pos: {k: sum(v) / len(v) for k, v in m.items()} for pos, m in ms.items()}
-    print(f"[parler {qtype}] one graph row, device ms (before: the masked read captured in the "
+    print(f"[{tag}] one graph step, device ms (before: the masked read captured in the "
           f"kernel's place; after: prefix_attention), {REPLAYS} replays each, before, after, "
           f"after, before: " + "; ".join(f"pos {p}: {m['before']:.3f} -> {m['after']:.3f}"
                                         for p, m in out.items()))
+    return out
+
+
+def capture_masked_read(mod, before, after, masked_read, loop_state, limit: int):
+    """Capture `before`, a step of `after`'s key over the same cache, with
+    `masked_read` in the place of model module `mod`'s prefix_attention:
+    the step as it ran before the kernel.  Its capture launches no
+    prefix_attention."""
+    import torch
+
+    from tts_tpu_torch.ops import attention as ta
+
+    kernel = mod.prefix_attention
+    mod.prefix_attention = masked_read
+    n = ta.prefix_attention.launches
+    try:
+        with torch.inference_mode():
+            before.load(loop_state, limit,
+                        {"last": after.state["last"], "count": after.state["count"]})
+            before.run()                           # the eager step and the capture
+    finally:
+        mod.prefix_attention = kernel
+    check(before.graph is not None and ta.prefix_attention.launches == n,
+          f"the masked-read {before.label} step launched prefix_attention")
+
+
+def parler_row_before_after(runner, qtype: str) -> dict:
+    """One graph row's device ms, before and after (`replay_before_after`):
+    the runner's own step (prefix_attention) against the same step
+    captured with the masked read of the whole cache in its place (one mask
+    a forward, every layer's cache widened to f32 under it), at
+    PARLER_ROW_POSITIONS."""
+    import torch
+
+    from tts_tpu_torch.models import parler as tp
+    from tts_tpu_torch.ops import attention as ta
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    after = runner._decode_step(GenerationConfig(top_k=50, seed=11), runner.cross_kv)
+    check(after.graph is not None, "no captured graph of the rounds' key")
+    before = tp.ParlerStep(runner.params, runner.cfg, runner._cache, runner.cross_kv,
+                           runner._generator, runner.device, top_k=after.top_k,
+                           do_sample=after.do_sample, use_top_p=after.use_top_p, capture=True)
+    masks: dict = {}
+
+    def masked_read(q, k, v, pos, counters=None, scale=None):
+        # one mask a forward (the capture makes its own), the whole cache
+        # read under it in every layer
+        key = (pos.data_ptr(), torch.cuda.is_current_stream_capturing())
+        if key not in masks:
+            key_pos = torch.arange(k.shape[0], device=k.device)
+            masks[key] = torch.where(key_pos[None, :] <= pos[:, None], 0.0, -1e9)
+        return ta.attend(q, k, v, masks[key])
+
+    capture_masked_read(tp, before, after, masked_read, tp.init_loop_state(runner.cfg),
+                        PARLER_ROW_POSITIONS[0])
+    out = replay_before_after(before, after, PARLER_ROW_POSITIONS, f"parler {qtype}")
+    del before
+    return out
+
+
+def dia_step_before_after(runner, qtype: str) -> dict:
+    """One graph step's device ms, before and after (`replay_before_after`):
+    the runner's own step (prefix_attention) against the same step
+    captured with Dia's masked read of the whole cache in its place (one
+    mask a forward repeated over a KV head's query rows, every layer's
+    cache widened to f32 under it, no scale), at DIA_STEP_POSITIONS."""
+    import torch
+
+    from tts_tpu_torch.models import dia as td
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    after = runner._decode_step(GenerationConfig(top_k=50, seed=11))
+    check(after.graph is not None, "no captured Dia graph of the rounds' key")
+    before = td.DiaStep(runner.params, runner.cfg, runner._cache, runner._cross,
+                        runner._generator, runner.device, top_k=after.top_k,
+                        do_sample=after.do_sample, use_top_p=after.use_top_p, capture=True)
+    masks: dict = {}
+
+    def masked_read(q, k, v, pos, counters=None, scale=None):
+        B, Hkv, S, hs = k.shape
+        G = q.shape[1] // Hkv
+        key = (pos.data_ptr(), torch.cuda.is_current_stream_capturing())
+        if key not in masks:
+            key_pos = torch.arange(S, device=k.device)
+            masks[key] = torch.where(key_pos[None, :] <= pos[:, None], 0.0, -1e9).repeat(G, 1)
+        logits = torch.matmul(q.reshape(B, Hkv, G, hs), k.float().transpose(2, 3)) + masks[key]
+        return torch.matmul(torch.softmax(logits, dim=-1), v.float()).reshape(B, -1)
+
+    capture_masked_read(td, before, after, masked_read, td.dia_init_loop_state(runner.cfg),
+                        runner.cfg.max_generation_size)
+    out = replay_before_after(before, after, DIA_STEP_POSITIONS, f"dia {qtype}")
     del before
     return out
 
@@ -1774,7 +1905,8 @@ def ar_decode_rounds(runner, model: str, qtype: str) -> dict:
     tokens through runner.generate at one seed, every round's rows equal and
     the launches exact (Parler: the format's GEMV 192 and prefix_attention
     24 per step and its GEMM 192 per prefill; Dia: the format's GEMM 162
-    per step and 36 per encode; everything else 0); then a request with another temperature
+    per step and 36 per encode, prefix_attention 18 per step; everything
+    else 0); then a request with another temperature
     and penalty on the same key (the same captured graph), graph then
     eager: equal to each other, not to the first config's; and the device
     ms of one graph replay (CUDA events over REPLAYS replays)."""
@@ -1833,7 +1965,8 @@ def ar_decode_rounds(runner, model: str, qtype: str) -> dict:
         want.update({gemv: per * forwards["step"], gemm: per * len(rounds),
                      "prefix_attention": PARLER_LAYERS * forwards["step"]})
     else:
-        want[gemm] = per * forwards["step"] + 2 * DIA_LAYERS * len(rounds)
+        want.update({gemm: per * forwards["step"] + 2 * DIA_LAYERS * len(rounds),
+                     "prefix_attention": DIA_LAYERS * forwards["step"]})
     print(f"[{model} {qtype}] launches over the rounds (forwards {dict(forwards)}): {counts}")
     check(counts == want and not forwards["verify"], f"rounds: launches {counts}, not {want}")
     first = rows[("eager", True)][0]
@@ -2093,9 +2226,9 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
     return counts, summary
 
 
-def parler() -> tuple[dict, dict]:
+def parler() -> tuple[dict, list]:
     """Phase 7; returns the launch counts of each Parler path's served
-    requests, and prefix_attention's kernel record."""
+    requests, and prefix_attention's kernel rows at Parler's shapes."""
     phase("7 Parler-TTS mini v1: prefix_attention, tiny models cuda against cpu")
     import torch
 
@@ -2380,12 +2513,16 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
           + per * (forwards["step"] + forwards["verify"]),
           f"{gemm} launched {counts[gemm]}, not 36 per request plus 162 per step and per "
           f"verify window: {dict(forwards)}")
-    others = [k for k in counts if k != gemm]
+    check(counts["prefix_attention"] == DIA_LAYERS * forwards["step"],
+          f"prefix_attention launched {counts['prefix_attention']}, not {DIA_LAYERS} per step: "
+          f"{dict(forwards)}")
+    others = [k for k in counts if k not in (gemm, "prefix_attention")]
     check(not any(counts[k] for k in others), f"the Dia {qtype} path launched {counts}")
     summary["forwards"] = dict(forwards)
     print(f"max_memory_allocated during the requests {summary['max_memory_allocated_mib']:.0f} "
           f"MiB over what was allocated before the load (weights, caches, activations)")
     summary["rounds"] = ar_decode_rounds(runner, "dia", qtype)
+    summary["step_before_after"] = dia_step_before_after(runner, qtype)
     summary["bracket"] = dia_bracket(runner, DIA_TEXTS[1])
     prof = profile_request(runner, DIA_TEXTS[0],
                            GenerationConfig(seed=1, top_k=50, max_tokens=DIA_PROFILE_TOKENS),
@@ -2399,13 +2536,14 @@ def dia_server(path: str, qtype: str) -> tuple[dict, dict]:
     return counts, summary
 
 
-def dia() -> dict:
+def dia() -> tuple[dict, list]:
     """Phase 8; returns the launch counts of each Dia path's served
-    requests."""
-    phase("8 Dia-1.6B: tiny models, cuda against cpu")
+    requests, and prefix_attention's kernel rows at Dia's shapes."""
+    phase("8 Dia-1.6B: prefix_attention, tiny models cuda against cpu")
     import torch
 
     os.makedirs(MODEL_DIR, exist_ok=True)
+    attention = dia_attention()
     for qtype in QTYPES:
         dia_tiny_cuda_vs_cpu(qtype)
     paths = dia_models()
@@ -2416,7 +2554,7 @@ def dia() -> dict:
         counts[f"dia_{qtype}"], summary[qtype] = dia_server(paths[qtype], qtype)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     print(json.dumps({"dia": summary}))
-    return counts
+    return counts, attention
 
 
 # ------------------------------------------------------------------ apps ---
@@ -3516,10 +3654,11 @@ def main() -> int:
             orpheus_q8 = runner         # phase 10 cuts its params over tp = 2
         del runner
     counts["kokoro"] = kokoro()
-    parler_counts, attention = parler()
+    parler_counts, parler_rows = parler()
     counts.update(parler_counts)
-    results.append(attention)
-    counts.update(dia())
+    dia_counts, dia_rows = dia()
+    counts.update(dia_counts)
+    results.append(prefix_attention_record(parler_rows + dia_rows))
     counts.update(apps(card, paths["Q4_0"]))
     counts.update(parallel(card, orpheus_q8, paths["Q4_0"]))
     counts.update(last_modules(card, orpheus_q8, paths))

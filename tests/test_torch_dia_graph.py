@@ -357,3 +357,41 @@ def test_loop_refuses_a_step_of_another_key():
         with pytest.raises(ValueError, match="keyed"):
             td.dia_decode_loop(None, cfg, 100, 4, kw["cache"], kw["cross_kv"], kw["generator"],
                                init_state(9, "cpu"), loop, top_k=kw["top_k"], step=step)
+
+
+def test_a_step_at_dia_1_6bs_depth_calls_prefix_attention_18_times(monkeypatch):
+    """A DiaStep at Dia-1.6B's 18 decoder layers and attention widths (16
+    query heads over 4 KV heads of 128; a narrow hidden size) takes each
+    step's self-attention from prefix_attention once a layer: 18 calls a
+    step, each with a layer of the step's cache, the cache's counters, the
+    step's device position and scale 1.0.  On a card each call is one
+    kernel launch, and a replay adds the capture's launches
+    (tests/test_torch_kernels.py: the tiny steps' counts per replay)."""
+    from tts_tpu_torch.convert.builder_dia import build_dia_tensors
+    from tts_tpu_torch.ops import attention as ta
+
+    tensors, kv = build_dia_tensors(np.random.default_rng(0), enc_layers=1, dec_layers=18,
+                                    dec_hidden=128, dec_heads=16, query_heads=4,
+                                    head_size=128, max_gen=128, ffn=128)
+    cfg = td.DiaConfig.from_gguf_kv(kv)
+    assert (cfg.n_decoder_layers, cfg.decoder_attn_heads, cfg.kv_heads) == (18, 16, 4)
+    params = td.load_dia_params(tensors, cfg, "cpu")
+    g = torch.Generator().manual_seed(0)
+    cross = {"k": torch.randn((18, 2, 16, 128, 8), generator=g) * 0.1,
+             "v": torch.randn((18, 2, 16, 8, 128), generator=g)}
+    cache = td.init_dia_cache(cfg, "cpu")
+    step = td.DiaStep(params, cfg, cache, cross, torch.Generator().manual_seed(1), "cpu",
+                      top_k=50)
+    calls = []
+    wrapped = ta.prefix_attention
+
+    def counting(q, k, v, pos, counters=None, scale=None):
+        calls.append((k.data_ptr(), int(pos[0]), counters is cache["counters"], scale))
+        return wrapped(q, k, v, pos, counters, scale)
+
+    monkeypatch.setattr(td, "prefix_attention", counting)
+    step.load(td.dia_init_loop_state(cfg), 100, init_state(9, "cpu"))
+    for _ in range(3):
+        step.run()
+    layers = [cache["k"][l].data_ptr() for l in range(18)]
+    assert calls == [(ptr, p, True, 1.0) for p in range(3) for ptr in layers]

@@ -509,19 +509,169 @@ def test_prefix_attention_graph_replays_equal_eager_calls(cuda):
         assert not counters.any(), pos
 
 
+# SHA-256 of the output bytes of the Parler instance (bf16 and f32 caches,
+# rand_prefix's inputs, PA_POSITIONS in order), as the kernel gave them
+# before Dia's instances were added (H100, the kernel of the tree before):
+# the Parler instance keeps its grid, chunk and order of summation
+PA_PARLER_DIGESTS = {"bf16": "2d1ec86a67330ba073bb27b29ae485f578d7b9db8063a78f29f3144832b351ae",
+                     "f32": "988fbf33ffcc7d9403241bfbf37c9023f46444f025f531572a4bd84834c11a4b"}
+
+
+def prefix_digest(outputs) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for o in outputs:
+        h.update(o.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_prefix_attention_parler_bits_are_unchanged(cuda, dtype):
+    """At every position of PA_POSITIONS, Parler's instance gives the bits
+    the kernel gave before it was shared with Dia's."""
+    counters = ta.arrival_counters(PA_H, cuda)
+    outs = [ta.prefix_attention(*rand_prefix(pos, cuda, dtype), counters)
+            for pos in PA_POSITIONS]
+    torch.cuda.synchronize()
+    key = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert prefix_digest(outs) == PA_PARLER_DIGESTS[key]
+
+
+# Dia's decode-step self-attention (the same kernel's head-major GQA
+# instances) at Dia-1.6B's shapes: the CFG pair of 16 query heads over 4 KV
+# heads of 128, a head-major 3,072-slot cache, unscaled logits (Dia's
+# softmax has no 1/sqrt(hs)); against the plain masked read, to 1e-5 of
+# max|out| (the order of summation alone differs)
+DIA_B, DIA_HKV, DIA_G, DIA_HS, DIA_S = 2, 4, 4, 128, 3072
+DIA_POSITIONS = [0, 63, 64, 511, 1023, 2047, 3071]
+
+
+def rand_dia_prefix(pos, device, dtype=torch.bfloat16, past=None, hkv=DIA_HKV, g=DIA_G,
+                    s=DIA_S):
+    """q [2, hkv * g, 128] f32 and a head-major cache layer [2, hkv, s, 128]
+    in `dtype` (K at 0.3: Dia's unscaled logits several units wide); slots
+    past pos hold `past` (NaN, say) if given."""
+    gen = torch.Generator(device="cpu").manual_seed(2000 + pos)
+    q = torch.randn((DIA_B, hkv * g, DIA_HS), generator=gen)
+    k = torch.randn((DIA_B, hkv, s, DIA_HS), generator=gen) * 0.3
+    v = torch.randn((DIA_B, hkv, s, DIA_HS), generator=gen)
+    if past is not None:
+        k[:, :, pos + 1:] = past
+        v[:, :, pos + 1:] = past
+    pos_t = torch.tensor([pos], dtype=torch.int32)
+    return q.to(device), k.to(dtype).to(device), v.to(dtype).to(device), pos_t.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("pos", DIA_POSITIONS)
+def test_prefix_attention_dia_matches_plain(cuda, pos, dtype):
+    """One launch per call against Dia's masked read of the whole cache (the
+    plain version on the card's f32 products, TF32 off), counters left at
+    zero."""
+    q, k, v, pos_t = rand_dia_prefix(pos, cuda, dtype)
+    counters = ta.arrival_counters(DIA_B * DIA_HKV, cuda)
+    n = ta.prefix_attention.launches
+    got = ta.prefix_attention(q, k, v, pos_t, counters, scale=1.0)
+    torch.cuda.synchronize()
+    assert ta.prefix_attention.launches == n + 1
+    assert got.shape == (DIA_B, DIA_HKV * DIA_G * DIA_HS) and got.dtype == torch.float32
+    assert rel_err(got, ta.prefix_attention_plain(q, k, v, pos_t, 1.0)) < PA_TOL
+    assert not counters.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [1e5, float("nan")], ids=["1e5", "nan"])
+@pytest.mark.parametrize("pos", DIA_POSITIONS)
+def test_prefix_attention_dia_reads_nothing_past_pos(cuda, pos, past):
+    """1e5 or NaN in every slot past pos leaves the output finite and bit
+    for bit the output without it; two launches at one pos give equal bits
+    (the combine's order is fixed by pos alone)."""
+    counters = ta.arrival_counters(DIA_B * DIA_HKV, cuda)
+    a = ta.prefix_attention(*rand_dia_prefix(pos, cuda), counters, scale=1.0)
+    poisoned = rand_dia_prefix(pos, cuda, past=past)
+    b = ta.prefix_attention(*poisoned, counters, scale=1.0)
+    c = ta.prefix_attention(*poisoned, counters, scale=1.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(b).all()
+    assert torch.equal(a, b) and torch.equal(b, c)
+    assert not counters.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 1023, 3071])
+def test_prefix_attention_dia_is_one_kernel(cuda, pos):
+    """One device kernel per call, on a grid of (2 x 4 KV heads, 64-slot
+    chunks): each KV head's rows are read by one CTA per chunk for all 4 of
+    its query heads."""
+    q, k, v, pos_t = rand_dia_prefix(pos, cuda)
+    counters = ta.arrival_counters(DIA_B * DIA_HKV, cuda)
+    acts = _ext.device_activity(
+        lambda: ta.prefix_attention(q, k, v, pos_t, counters, scale=1.0))
+    assert len(acts) == 1 and "prefix_attention_kernel" in acts[0]["name"], acts
+    assert acts[0]["grid"] == [DIA_B * DIA_HKV, DIA_S // ta.PA_CHUNK, 1], acts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_prefix_attention_dia_graph_replays_equal_eager_calls(cuda, dtype):
+    """One capture replayed as pos advances on the device (one chunk, a
+    chunk's edges, many chunks, the last slot) gives the bits of an eager
+    call at each, the counters back at zero after every replay."""
+    q, k, v, pos_t = rand_dia_prefix(DIA_S - 1, cuda, dtype)
+    counters = ta.arrival_counters(DIA_B * DIA_HKV, cuda)
+    ta.prefix_attention(q, k, v, pos_t, counters, scale=1.0)     # warm, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ta.prefix_attention(q, k, v, pos_t, counters, scale=1.0)
+    for pos in (0, 63, 64, 511, 1023, 2047, 3071):
+        pos_t.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        eager = ta.prefix_attention(q, k, v, pos_t, counters, scale=1.0)
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager), pos
+        assert not counters.any(), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_prefix_attention_tiny_dia_instance_matches_plain(cuda, dtype):
+    """The tests' tiny Dia (2 query heads per KV head, 64 slots) takes the
+    kernel's G = 2 instance."""
+    counters = ta.arrival_counters(DIA_B * 2, cuda)
+    for pos in (0, 31, 63):
+        q, k, v, pos_t = rand_dia_prefix(pos, cuda, dtype, hkv=2, g=2, s=64)
+        got = ta.prefix_attention(q, k, v, pos_t, counters, scale=1.0)
+        torch.cuda.synchronize()
+        assert rel_err(got, ta.prefix_attention_plain(q, k, v, pos_t, 1.0)) < PA_TOL
+    assert not counters.any()
+
+
 @pytest.mark.cuda
 def test_prefix_attention_refuses_what_the_kernel_cannot_take(cuda):
-    """A head size other than 64, a cache that is no whole number of
-    chunks, missing counters or tensors on two devices raise before any
-    launch."""
+    """A head size other than 64 position-major, a head-major layer with
+    head size 64 or 8 query heads per KV head, a cache that is no whole
+    number of chunks, missing or too few counters or tensors on two devices
+    raise before any launch."""
     q, k, v, pos_t = rand_prefix(5, cuda)
     counters = ta.arrival_counters(PA_H, cuda)
     n = ta.prefix_attention.launches
     wide = torch.zeros((256, PA_H, 128), dtype=torch.bfloat16, device=cuda)
+    dq, dk, dv, _ = rand_dia_prefix(5, cuda, s=256)
+    dia_counters = ta.arrival_counters(DIA_B * DIA_HKV, cuda)
     for args in ((q.repeat(1, 1, 2), wide, wide, pos_t, counters),
                  (q, k[:100], v[:100], pos_t, counters),
                  (q, k, v, pos_t, None),
-                 (q, k, v, pos_t.cpu(), counters)):
+                 (q, k, v, pos_t.cpu(), counters),
+                 (dq[..., :64].contiguous(), dk[..., :64].contiguous(),
+                  dv[..., :64].contiguous(), pos_t, dia_counters),
+                 (dq.repeat(1, 2, 1), dk, dv, pos_t, dia_counters),
+                 (dq, dk, dv, pos_t, dia_counters[:DIA_HKV])):
         with pytest.raises(ValueError, match="prefix_attention"):
             ta.prefix_attention(*args)
     assert ta.prefix_attention.launches == n
@@ -845,10 +995,10 @@ def test_ar_graph_launch_counts_are_exact(cuda, tiny_ar, model, qtype, monkeypat
     (one eager step, the capture, replays) and a second (replays only),
     Parler 16 GEMVs and 2 prefix_attention per row (8 linears and one
     self-attention in each of 2 layers; 192 and 24 at 24 layers) and 16
-    GEMMs per prefill; Dia 18 GEMMs per step (9 in each of 2 layers; 162
-    at 18) and 4 per request (the cross-KV); the capture itself adds
-    nothing, and flash_decode, the other format's kernels (and Dia's
-    prefix_attention) stay at 0."""
+    GEMMs per prefill; Dia 18 GEMMs and 2 prefix_attention per step (9
+    linears and one self-attention in each of 2 layers; 162 and 18 at 18)
+    and 4 GEMMs per request (the cross-KV); the capture itself adds
+    nothing, and flash_decode and the other format's kernels stay at 0."""
     from tts_tpu_torch.models import dia as td
     from tts_tpu_torch.models import parler as tp
     from tts_tpu_torch.models.registry import runner_from_file
@@ -877,7 +1027,7 @@ def test_ar_graph_launch_counts_are_exact(cuda, tiny_ar, model, qtype, monkeypat
         if model == "parler":
             want[gemv], want[gemm], want[ta.prefix_attention] = 16 * n, 16, 2 * n
         else:
-            want[gemm] = 18 * n + 4
+            want[gemm], want[ta.prefix_attention] = 18 * n + 4, 2 * n
         assert {k: k.launches for k in kernels} == want
 
 
@@ -911,6 +1061,73 @@ def test_parler_step_reads_no_cache_slot_past_the_position(cuda, tiny_ar, qtype)
         assert not cache["counters"].any()
     rest = {S: [a for a in acts[S] if "prefix_attention_kernel" not in a[0]] for S in acts}
     assert rest[512] == rest[4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+def test_dia_step_reads_no_cache_slot_past_the_position(cuda, tiny_ar, qtype):
+    """The kernels, copies and memsets of one Dia decode step, read from a
+    CUDA graph captured around it: 2 prefix_attention launches (one a
+    layer) on a grid of (2 x KV heads, 64-slot chunks), and nothing else
+    changes between a 512-slot and a 3,072-slot cache: no f32 copy of the
+    cache, no mask, softmax or cuBLAS product over it."""
+    import dataclasses
+
+    from tts_tpu_torch.models import dia as td
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.ops.sampling import init_state
+    from tts_tpu_torch.runtime.api import GenerationConfig
+
+    runner = runner_from_file(tiny_ar("dia", qtype), device="cuda")
+    config = GenerationConfig()
+    with torch.inference_mode():
+        cross, _, _ = runner._encode(runner._prompt_ids(AR_TEXT["dia"], config), config)
+    acts = {}
+    for S in (512, 3072):
+        cfg = dataclasses.replace(runner.cfg, max_generation_size=S)
+        cache = td.init_dia_cache(cfg, cuda)
+        step = td.DiaStep(runner.params, cfg, cache, cross, None, cuda, top_k=0,
+                          do_sample=False, use_top_p=False)
+        with torch.inference_mode():
+            step.load(td.dia_init_loop_state(cfg), 20, init_state(cfg.n_output_heads, cuda))
+            acts[S] = [(a["name"], a["grid"]) for a in _ext.device_activity(step._step)]
+        grids = [g for name, g in acts[S] if "prefix_attention_kernel" in name]
+        assert grids == [[2 * cfg.kv_heads, S // ta.PA_CHUNK, 1]] * cfg.n_decoder_layers, acts[S]
+        assert not cache["counters"].any()
+    rest = {S: [a for a in acts[S] if "prefix_attention_kernel" not in a[0]] for S in acts}
+    assert rest[512] == rest[3072]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["parler", "dia"])
+def test_the_decode_span_counts_the_attention_launches(cuda, tiny_ar, model):
+    """A served request's decode spans carry `attn_launches`: one
+    prefix_attention launch a layer for every step the loops ran (2 a row
+    or step at the tiny models' 2 layers; Parler-TTS mini v1 24, Dia-1.6B
+    18)."""
+    from tts_tpu_torch.models import dia as td
+    from tts_tpu_torch.models import parler as tp
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.api import GenerationConfig
+    from tts_tpu_torch.utils import trace
+
+    runner = runner_from_file(tiny_ar(model, "Q4_0"), device="cuda")
+    config = GenerationConfig(seed=2, top_k=50, max_tokens=40)
+    runner.generate(AR_TEXT[model], config)                      # the capture
+    cls = tp.ParlerStep if model == "parler" else td.DiaStep
+    runs = []
+    run = cls.run
+    cls.run = lambda self: runs.append(1) or run(self)
+    trace.enable()
+    try:
+        runner.generate(AR_TEXT[model], config)
+        torch.cuda.synchronize()
+    finally:
+        cls.run = run
+        trace.disable()
+    decodes = [s for s in trace.drain()["spans"] if s["name"] == "decode"]
+    assert decodes and sum(d["counters"]["rows"] for d in decodes) > 30
+    assert sum(d["counters"]["attn_launches"] for d in decodes) == 2 * len(runs)
 
 
 @pytest.mark.cuda

@@ -231,8 +231,31 @@ def test_the_decode_span_counts_rows_and_no_device_time_on_the_cpu(recorder):
         assert len(list(read_behind(Counter(), 5, 1))) == 5
     spans = trace.drain()["spans"]
     decodes = by_name(spans, "decode")
-    assert [d["counters"] for d in decodes] == [{"rows": 4}, {"rows": 5}]
+    assert [d["counters"] for d in decodes] == [{"rows": 4, "attn_launches": 0},
+                                                {"rows": 5, "attn_launches": 0}]
     assert all(d["parent"] == service.id and d["request"] == "r" for d in decodes)
+
+
+def test_the_decode_span_counts_the_attention_launches_of_its_runs(recorder, monkeypatch):
+    """`attn_launches` is what prefix_attention.launches gained over the
+    loop's runs (here a step that adds 3 a run, as a 3-layer step on a card
+    would), the runs discarded after the caller stops included."""
+    from tts_tpu_torch.runtime import step_graph
+
+    class Attending(Counter):
+        def _step(self):
+            super()._step()
+            step_graph.prefix_attention.launches += 3
+
+    monkeypatch.setattr(step_graph.prefix_attention, "launches", 100)
+    assert len(list(read_behind(Attending(), 6, 1))) == 6
+    for i, _ in enumerate(read_behind(Attending(), 10, 1)):
+        if i == 2:
+            break
+    (full, cut) = by_name(trace.drain()["spans"], "decode")
+    assert full["counters"] == {"rows": 6, "attn_launches": 18}
+    assert cut["counters"] == {"rows": 3, "attn_launches": 12}     # 4 runs: one ahead
+    assert step_graph.prefix_attention.launches == 100 + 18 + 12
 
 
 @pytest.fixture(scope="module")

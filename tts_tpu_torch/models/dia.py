@@ -20,10 +20,13 @@ M = 2, the speculative verify M = 16 and the cross-KV precompute M =
 cross caches and the heads in bf16 (the cross K/V are kept as f32 values
 rounded to bf16, which the attention reads without a cast per step).  Self-
 and cross-attention are plain torch products (no Pallas kernel served them
-on the TPU either).  A sequential step (T = 1) runs at a device position
-and reads the whole cache under the JAX package's -1e9 mask, so it has one
-shape at every position; a verify window reads the live prefix only,
-which computes the same function.
+on the TPU either), except a sequential step's self-attention on the card.
+A sequential step (T = 1) runs at a device position, so it has one shape at
+every position: its self-attention is `ops.attention.prefix_attention`, on
+the card one hand-written kernel a layer that reads only the live prefix of
+the bf16 (or f32) cache, on the CPU the JAX package's read of the whole
+cache under its -1e9 mask; a verify window reads the live prefix only in
+plain torch.  All three compute the same function.
 The full-context encoder is kept as the JAX package runs it: the cross K
 past the prompt is zero and the cross-attention has no mask, so the pad
 positions carry weight exp(0) with V from the encoder's pad block, and an
@@ -63,6 +66,7 @@ import torch.nn.functional as F
 from tts_tpu_torch.codecs.dac import DACDecoder
 from tts_tpu_torch.core.gguf import GGMLType, GGUFTensor
 from tts_tpu_torch.models.registry import register_loader
+from tts_tpu_torch.ops.attention import arrival_counters, prefix_attention
 from tts_tpu_torch.ops.qmatmul import apply_linear, load_linear
 from tts_tpu_torch.ops.sampling import init_state
 from tts_tpu_torch.ops.spec import SPEC_K, ngram_draft_rows, spec_enabled
@@ -274,13 +278,16 @@ def dia_cross_kv(params: dict, cfg: DiaConfig, enc_states: torch.Tensor, n_valid
 
 def init_dia_cache(cfg: DiaConfig, device=None) -> dict:
     """Head-major self-attention K/V [L, 2, Hkv, max_gen, hs] in
-    cfg.kv_dtype.  Slots past a request's position are never read, so it
-    is reused unzeroed."""
+    cfg.kv_dtype, and the decode step's `prefix_attention` arrival counters
+    [2 * Hkv] of this cache, zeroed (allocated here, so outside any graph
+    capture; every launch leaves them at zero).  Slots past a request's
+    position are never read, so it is reused unzeroed."""
     device = card_device(device)
     shape = (cfg.n_decoder_layers, 2, cfg.kv_heads, cfg.max_generation_size, cfg.head_size)
     dt = getattr(torch, cfg.kv_dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "counters": arrival_counters(2 * cfg.kv_heads, device)}
 
 
 def _dia_rows(params: dict, cfg: DiaConfig, rows: torch.Tensor, pos, cache: dict,
@@ -293,14 +300,18 @@ def _dia_rows(params: dict, cfg: DiaConfig, rows: torch.Tensor, pos, cache: dict
     and attends causally over the live slots [0, pos + T).  T == 1 (a
     sequential step) runs at the device position pos (an int32 tensor [1];
     an int is made one): RoPE is built from it, K/V are written at that
-    slot with index_copy_, and self-attention reads all
-    cfg.max_generation_size slots under the JAX package's additive mask (0
-    where key_pos <= pos, -1e9 past it), so the step has one shape at every
-    position and a captured graph of it serves them all.  A masked key
-    weighs exp(-1e9 - max) = 0 exactly in f32 while its logit is finite,
-    which holds: the cache is zeroed when made and every slot past pos
-    holds K/V an earlier forward wrote from finite activations (a
-    non-finite one would have shown in that forward's own logits)."""
+    slot with index_copy_, and self-attention is `prefix_attention` over
+    the layer's cache at the device position (scale 1.0), so the step has
+    one shape at every position and a captured graph of it serves them
+    all.  On the card that is one hand-written kernel a layer that reads
+    only the slots <= pos, each KV head's once for its 4 query heads, in
+    f32; on the CPU it is the JAX package's read of all
+    cfg.max_generation_size slots under the additive mask (0 where key_pos
+    <= pos, -1e9 past it), where a masked key weighs exp(-1e9 - max) = 0
+    exactly in f32 while its logit is finite, which holds: the cache is
+    zeroed when made and every slot past pos holds K/V an earlier forward
+    wrote from finite activations (a non-finite one would have shown in
+    that forward's own logits)."""
     dec = params["decoder"]
     B, T = 2, rows.shape[0]
     Hq, Hkv, hs = cfg.decoder_attn_heads, cfg.kv_heads, cfg.head_size
@@ -313,14 +324,13 @@ def _dia_rows(params: dict, cfg: DiaConfig, rows: torch.Tensor, pos, cache: dict
     if T == 1:
         positions = device_pos(pos, device)
         slot = positions.long()
-        key_pos = torch.arange(cfg.max_generation_size, device=device)
     else:
         end = pos + T
         positions = torch.arange(pos, end, device=device)
         key_pos = torch.arange(end, device=device)
+        # the query rows of a KV head run g-major: (g, t) -> g * T + t
+        mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, -1e9).repeat(G, 1)
     cos, sin = _rope_tables(positions, hs)
-    # the query rows of a KV head run g-major: (g, t) -> g * T + t
-    mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, -1e9).repeat(G, 1)
     for l, L in enumerate(dec["layers"]):
         h = _rms(x, L["sa_norm"])
         q = _rope(apply_linear(h, L["sa_q"]).reshape(B, T, Hq, hs), cos, sin)
@@ -331,15 +341,16 @@ def _dia_rows(params: dict, cfg: DiaConfig, rows: torch.Tensor, pos, cache: dict
         if T == 1:
             ck.index_copy_(2, slot, k)
             cv.index_copy_(2, slot, v)
-            keys, values = ck, cv
+            attn = prefix_attention(q.reshape(B, Hq, hs), ck, cv, positions,
+                                    cache.get("counters"), scale=1.0)[:, None]
         else:
             ck[:, :, pos:end] = k
             cv[:, :, pos:end] = v
             keys, values = ck[:, :, :end], cv[:, :, :end]
-        qg = q.reshape(B, T, Hkv, G, hs).permute(0, 2, 3, 1, 4).reshape(B, Hkv, G * T, hs)
-        logits = torch.matmul(qg, keys.float().transpose(2, 3)) + mask
-        attn = torch.matmul(torch.softmax(logits, dim=-1), values.float())
-        attn = attn.reshape(B, Hkv, G, T, hs).permute(0, 3, 1, 2, 4).reshape(B, T, Hq * hs)
+            qg = q.reshape(B, T, Hkv, G, hs).permute(0, 2, 3, 1, 4).reshape(B, Hkv, G * T, hs)
+            logits = torch.matmul(qg, keys.float().transpose(2, 3)) + mask
+            attn = torch.matmul(torch.softmax(logits, dim=-1), values.float())
+            attn = attn.reshape(B, Hkv, G, T, hs).permute(0, 3, 1, 2, 4).reshape(B, T, Hq * hs)
         x = x + apply_linear(attn, L["sa_o"])
 
         h = _rms(x, L["ca_norm"])

@@ -72,9 +72,10 @@ SIGNATURES = {
     # out, Hq, Hkv, S, kv_int8, scale, stream
     "flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _F, _P),
-    # q, k, v, pos, counters, part_m, part_l, part_acc, out, H, S,
-    # elem_bytes, scale, stream
-    "prefix_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # q, k, v, pos, counters, part_m, part_l, part_acc, out, nkv, S,
+    # head_size, group, head_major, elem_bytes, scale, stream
+    "prefix_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 # device_activity: the graph node types it reports (cuda.h CUgraphNodeType),

@@ -6,11 +6,11 @@ the hand-written Hopper kernel (csrc/attention.cu), which replaces the TPU's
 `_decode_attn_dyn_kernel`; `flash_decode_plain` is its plain PyTorch version,
 the same chunked online softmax with bf16 rounding in the same places, and
 runs only for tensors on the CPU.  `prefix_attention` is the wrapper of
-csrc/prefix_attention.cu, Parler's decode-step self-attention in f32 over
-the live prefix of its position-major cache (no TPU kernel: the JAX package
-reads the whole cache under a mask there); its plain version,
-`prefix_attention_plain`, is that masked read, with `attend`, the plain
-attention Parler runs everywhere else.
+csrc/prefix_attention.cu, Parler's and Dia's decode-step self-attention in
+f32 over the live prefix of the cache (Parler's position-major, Dia's
+head-major GQA; no TPU kernel: the JAX package reads the whole cache under a
+mask there); its plain version, `prefix_attention_plain`, is that masked
+read.  `attend` is the plain attention Parler runs everywhere else.
 """
 
 from __future__ import annotations
@@ -138,31 +138,57 @@ def attend(q, k, v, mask):
     return torch.matmul(w, v.float().transpose(0, 1)).transpose(0, 1).reshape(q.shape[0], -1)
 
 
-def prefix_attention_plain(q, k_cache, v_cache, pos):
-    """The read the kernel replaces, as the JAX package's decode step makes
-    it: q [1, H, hs] against every slot of [S, H, hs] under the additive
-    mask, 0 where key_pos <= pos and -1e9 past it -> [1, H * hs] f32.  A
+def prefix_attention_plain(q, k_cache, v_cache, pos, scale=None):
+    """The read the kernel replaces, as the JAX package's decode steps make
+    it: q against every slot of one cache layer under the additive mask, 0
+    where key_pos <= pos and -1e9 past it, the logits times `scale` (None:
+    divided by sqrt(hs), as `attend` does).  Two layouts: position-major
+    (Parler) q [1, H, hs] and cache [S, H, hs] -> [1, H * hs]; head-major
+    GQA (Dia) q [B, Hq, hs] and cache [B, Hkv, S, hs] -> [B, Hq * hs],
+    query head h of row b reading KV head h // (Hq / Hkv) of row b.  A
     masked key weighs exactly 0 in f32 while its logit is finite."""
-    key_pos = torch.arange(k_cache.shape[0], device=q.device)
+    hs = q.shape[-1]
+    if k_cache.dim() == 3:                          # [S, H, hs]: one row of H heads
+        qg, k = q.transpose(0, 1), k_cache.float().permute(1, 2, 0)
+        v = v_cache.float().transpose(0, 1)
+    else:                                           # [B, Hkv, S, hs]
+        B, Hkv = k_cache.shape[:2]
+        qg, k, v = q.reshape(B, Hkv, -1, hs), k_cache.float().transpose(2, 3), v_cache.float()
+    key_pos = torch.arange(k.shape[-1], device=q.device)
     mask = torch.where(key_pos[None, :] <= pos[:, None], 0.0, -1e9)
-    return attend(q, k_cache, v_cache, mask)
+    logits = torch.matmul(qg, k)
+    logits = logits / math.sqrt(hs) if scale is None else logits * scale
+    w = torch.softmax(logits + mask, dim=-1)
+    return torch.matmul(w, v).reshape(q.shape[0], -1)
 
 
 PA_CHUNK = _ext.GEOMETRY["PA_CHUNK"]          # positions per CTA of the prefix kernel
 _PA_MAX_S = _ext.GEOMETRY["PA_MAX_S"]         # cache positions, at most
-PA_HEAD_SIZE = 64                             # the kernel's head size (Parler's)
+# the kernel's instances by the cache layer's rank: (head size, query heads
+# per KV head); rank 3 is Parler's position-major layer, rank 4 Dia's
+# head-major GQA layer (4 query heads per KV head in Dia-1.6B, 2 in the
+# tests' tiny Dia)
+PA_INSTANCES = {3: ((64, 1),), 4: ((128, 4), (128, 2))}
 _PA_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 
 
 def _prefix_checks(q, k_cache, v_cache, pos):
-    """What both routes need: q [1, H, hs] f32, one layer of the cache
-    [S, H, hs] in bf16 or f32 twice, pos int32 [1], all contiguous."""
-    if q.dim() != 3 or q.shape[0] != 1 or k_cache.dim() != 3:
-        raise ValueError(f"prefix_attention: needs q [1, H, hs] and a cache layer [S, H, hs]; "
-                         f"got q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
-    if k_cache.shape != v_cache.shape or k_cache.shape[1:] != q.shape[1:]:
-        raise ValueError(f"prefix_attention: q {tuple(q.shape)}, k {tuple(k_cache.shape)} "
-                         f"and v {tuple(v_cache.shape)} disagree on [H, hs]")
+    """What both routes need: one layer of the cache in bf16 or f32 twice,
+    position-major [S, H, hs] with q [1, H, hs] or head-major [B, Hkv, S,
+    hs] with q [B, Hq, hs] (Hq a multiple of Hkv), q f32, pos int32 [1],
+    all contiguous."""
+    if k_cache.dim() == 3:
+        fits = q.dim() == 3 and q.shape[0] == 1 and k_cache.shape[1:] == q.shape[1:]
+    elif k_cache.dim() == 4:
+        B, Hkv, _, hs = k_cache.shape
+        fits = (q.dim() == 3 and q.shape[0] == B and q.shape[2] == hs
+                and q.shape[1] % Hkv == 0 and q.shape[1] >= Hkv)
+    else:
+        fits = False
+    if not fits or k_cache.shape != v_cache.shape:
+        raise ValueError(f"prefix_attention: needs q [1, H, hs] with a cache layer [S, H, hs], "
+                         f"or q [B, Hq, hs] with [B, Hkv, S, hs]; got q {tuple(q.shape)}, "
+                         f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
     if (q.dtype != torch.float32 or k_cache.dtype not in _PA_DTYPES
             or v_cache.dtype != k_cache.dtype):
         raise ValueError(f"prefix_attention: q f32 and a bf16 or f32 cache; got q {q.dtype}, "
@@ -171,24 +197,37 @@ def _prefix_checks(q, k_cache, v_cache, pos):
         raise ValueError(f"prefix_attention: pos must be an int32 tensor [1]; got {pos.dtype} "
                          f"{tuple(pos.shape)}")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache)):
-        raise ValueError("prefix_attention: q and the cache layer must be contiguous "
-                         "(position-major [S, H, hs])")
+        raise ValueError("prefix_attention: q and the cache layer must be contiguous")
+
+
+def _prefix_geometry(q, k_cache):
+    """(KV heads a launch covers, S, head size, query heads per KV head,
+    head-major) of arguments that passed `_prefix_checks`."""
+    if k_cache.dim() == 3:
+        S, H, hs = k_cache.shape
+        return H, S, hs, 1, False
+    B, Hkv, S, hs = k_cache.shape
+    return B * Hkv, S, hs, q.shape[1] // Hkv, True
 
 
 def prefix_card_checks(q, k_cache, v_cache, pos, counters):
-    """What the kernel needs beyond `_prefix_checks`: head size 64, S a
-    multiple of its chunk up to its limit, the cache's arrival counters
-    (int32 [>= H]), one device, 16-byte aligned cache rows (asynchronous
+    """What the kernel needs beyond `_prefix_checks`: one of its instances
+    (head size 64 and one query head per KV head position-major, head size
+    128 and four or two head-major), S a multiple of its chunk up to its limit, the
+    cache's arrival counters (int32, one per KV head of the layer, B * Hkv
+    head-major), one device, 16-byte aligned cache rows (asynchronous
     copies)."""
-    S, H, hs = k_cache.shape
-    if hs != PA_HEAD_SIZE or S % PA_CHUNK or S > _PA_MAX_S:
-        raise ValueError(f"prefix_attention: needs head size {PA_HEAD_SIZE}, S % {PA_CHUNK} == 0 "
-                         f"and S <= {_PA_MAX_S}; got cache {tuple(k_cache.shape)}")
+    nkv, S, hs, G, _ = _prefix_geometry(q, k_cache)
+    if (hs, G) not in PA_INSTANCES[k_cache.dim()] or S % PA_CHUNK or S > _PA_MAX_S:
+        want = " or ".join(f"head size {h} with {g} query head(s) per KV head at rank {r}"
+                           for r, inst in PA_INSTANCES.items() for h, g in inst)
+        raise ValueError(f"prefix_attention: needs {want}, S % {PA_CHUNK} == 0 and S <= "
+                         f"{_PA_MAX_S}; got q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
     if counters is None:
         raise ValueError("prefix_attention: on the card it needs the KV cache's arrival "
-                         "counters (arrival_counters(H, device))")
-    if counters.dtype != torch.int32 or counters.numel() < H or not counters.is_contiguous():
-        raise ValueError(f"prefix_attention: counters must be int32 [>= {H}], contiguous")
+                         f"counters (arrival_counters({nkv}, device))")
+    if counters.dtype != torch.int32 or counters.numel() < nkv or not counters.is_contiguous():
+        raise ValueError(f"prefix_attention: counters must be int32 [>= {nkv}], contiguous")
     if any(t.device != q.device for t in (k_cache, v_cache, pos, counters)):
         raise ValueError("prefix_attention: all tensors must be on one device")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
@@ -196,30 +235,33 @@ def prefix_card_checks(q, k_cache, v_cache, pos, counters):
                          "(asynchronous copies)")
 
 
-def prefix_attention(q, k_cache, v_cache, pos, counters=None):
-    """Parler's decode-step self-attention: q [1, H, hs] f32 against one
-    layer of its position-major cache [S, H, hs] (bf16, or f32 for a dense
-    checkpoint) over the positions <= pos, pos an int32 tensor [1] on q's
-    device -> [1, H * hs] f32.  On the card one launch reads pos on the
-    device and only the live rows, in f32 throughout; it needs the cache's
-    `arrival_counters(H)` (the last CTA of each head to finish combines the
-    head's chunks).  CPU tensors take the plain masked read and ignore the
-    counters."""
+def prefix_attention(q, k_cache, v_cache, pos, counters=None, scale=None):
+    """A decode step's self-attention over the positions <= pos of one
+    cache layer (bf16, or f32 for a dense checkpoint), pos an int32 tensor
+    [1] on q's device, the logits times `scale` (None: 1/sqrt(hs)).
+    Parler: q [1, H, hs] f32 against its position-major [S, H, hs] ->
+    [1, H * hs]; Dia: q [B, Hq, hs] f32 against its head-major [B, Hkv, S,
+    hs] -> [B, Hq * hs], query head h of row b reading KV head
+    h // (Hq / Hkv) of row b.  On the card one launch reads pos on the
+    device and only the live rows, each KV head's once for all its query
+    heads, in f32 throughout; it needs the cache's arrival counters (the
+    last CTA of each KV head to finish combines the head's chunks).  CPU
+    tensors take the plain masked read and ignore the counters."""
     _prefix_checks(q, k_cache, v_cache, pos)
     if not q.is_cuda:
-        return prefix_attention_plain(q, k_cache, v_cache, pos)
+        return prefix_attention_plain(q, k_cache, v_cache, pos, scale)
     prefix_card_checks(q, k_cache, v_cache, pos, counters)
-    S, H, hs = k_cache.shape
+    nkv, S, hs, G, head_major = _prefix_geometry(q, k_cache)
     nchunks = S // PA_CHUNK
-    part_m = torch.empty((H, nchunks), device=q.device)
-    part_l = torch.empty((H, nchunks), device=q.device)
-    part_acc = torch.empty((H, nchunks, hs), device=q.device)
-    out = torch.empty((1, H * hs), device=q.device)
+    part_m = torch.empty((nkv, nchunks, G), device=q.device)
+    part_l = torch.empty((nkv, nchunks, G), device=q.device)
+    part_acc = torch.empty((nkv, nchunks, G, hs), device=q.device)
+    out = torch.empty((q.shape[0], q.shape[1] * hs), device=q.device)
     err = _ext.load().prefix_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         counters.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), H, S, _PA_DTYPES[k_cache.dtype], 1.0 / math.sqrt(hs),
-        _ext.stream_ptr(q))
+        out.data_ptr(), nkv, S, hs, G, int(head_major), _PA_DTYPES[k_cache.dtype],
+        1.0 / math.sqrt(hs) if scale is None else float(scale), _ext.stream_ptr(q))
     prefix_attention.launches += 1
     _ext.check("prefix_attention", err)
     return out

@@ -149,17 +149,20 @@ def read_behind(step: CapturedStep, limit: int, lookahead: int):
     discarded, after the row where the caller stops iterating.
 
     The loop is one `decode` span (`utils/trace.py`), ended when the
-    caller stops iterating: `rows` read and, with the recorder on and on
-    a card, `device_ns` and `idle_ns` from an event before each run and
-    the timed event after its copy, read after one synchronization at the
-    end (host time inside `step.run` before its launch counts as device
-    time).  With the recorder off it makes one untimed event a run."""
+    caller stops iterating: `rows` read, `attn_launches` (the
+    `prefix_attention` launches of its runs, the discarded ones included:
+    one a layer and step on a card, 0 on the CPU) and, on a card,
+    `device_ns` and `idle_ns` from an event before each run and the timed
+    event after its copy, read after one synchronization at the end (host
+    time inside `step.run` before its launch counts as device time).  With
+    the recorder off it makes one untimed event a run."""
     cuda = step.device.type == "cuda"
     host = torch.empty((limit, step.buf.numel()), dtype=torch.int32, pin_memory=cuda)
     pending: collections.deque = collections.deque()   # an event per unread run
     enqueued = read = 0
     span = trace.span("decode")
     timed = cuda and span is not trace.NOOP
+    attn_before = prefix_attention.launches
     starts: list = []
     ends: list = []
     try:
@@ -186,6 +189,7 @@ def read_behind(step: CapturedStep, limit: int, lookahead: int):
             yield host[read - 1]
     finally:
         span.set("rows", read)
+        span.set("attn_launches", prefix_attention.launches - attn_before)
         if timed and read:
             ends[read - 1].synchronize()
             span.set("device_ns", starts[0].elapsed_time(ends[read - 1]) * 1e6)

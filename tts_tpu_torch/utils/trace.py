@@ -27,10 +27,11 @@ trace uses (`baseTimeNanoseconds + ts * 1000`).  The port records:
   service  child of http: the runner's lock held, to its release;
            `t_first_ns`: the first chunk (or the whole audio) handed over
   decode   runtime/step_graph.py::read_behind, one per decode-loop call,
-           child of the thread's current span: `rows`, and on a card
-           `device_ns` (the first step's start to the last read step's
-           end, on the device) and `idle_ns` (the device time between one
-           step's end and the next one's start, summed)
+           child of the thread's current span: `rows`, `attn_launches`
+           (the `prefix_attention` launches of the loop's steps), and on a
+           card `device_ns` (the first step's start to the last read
+           step's end, on the device) and `idle_ns` (the device time
+           between one step's end and the next one's start, summed)
 """
 
 from __future__ import annotations
