@@ -50,7 +50,8 @@ Phases (any failure exits non-zero, before the final line):
      Q8_0 model, then from the Q4_0 model (the first request's wall beside
      the second's); the launch counts of each run, exact against the
      forwards it ran (a graph replay counts what its capture launched),
-     show which kernels served it; then the decode rounds: sampled tok/s of
+     show which kernels served it (no GEMV of Orpheus-3B the small-call
+     instance); then the decode rounds: sampled tok/s of
      the eager and the graph route in alternating rounds (eager, graph,
      graph, eager) at one seed, tokens equal and launches exact, other
      sampling values on the same graph equal to their eager run, the device
@@ -89,8 +90,8 @@ Phases (any failure exits non-zero, before the final line):
      encoding, 256 rows each (wall, rows/s, route, RTF, load s, peak
      memory); the launch counts must show the int8 pair alone on Q8_0 and
      the int4 pair alone on Q4_0, exactly 192 GEMVs and 24 prefix_attention
-     per sequential step (a replay counts what its capture launched),
-     flash_decode 0; then the
+     per sequential step (a replay counts what its capture launched), every
+     GEMV of them the small-call instance, flash_decode 0; then the
      decode rounds: sampled rows/s of the eager and the graph route in
      alternating rounds (eager, graph, graph, eager) at one seed, rows
      equal and launches exact, the graph route faster in every pair, other
@@ -584,7 +585,7 @@ def kernels():
             # one device kernel per call (no cast, no split-K pass), its
             # grid (splits, column tiles) as planned: where the column tiles
             # leave SMs free, one wave of at most one CTA per SM
-            tile_n, splits, _ = tq.gemv_plan(K, N, sms, bits == 4)
+            tile_n, splits, _ = tq.gemv_plan(K, N, sms, bits == 4)[:3]
             tiles = -(-N // tile_n)
             launch = launch_grid(fn.__name__, "qgemv_kernel", label, lambda: fn(x, *ws[0]),
                                  [splits, tiles, 1], 1)
@@ -797,6 +798,20 @@ def launch_counters() -> dict:
                                     tq.qgemm_int4, ta.flash_decode, ta.prefix_attention)}
 
 
+def small_launches() -> dict:
+    """{name: .small_launches} of the GEMV wrappers: their launches that
+    took the small-call instance (ops/qmatmul.py gemv_plan)."""
+    from tts_tpu_torch.ops import qmatmul as tq
+
+    return {k.__name__: k.small_launches for k in (tq.qgemv_int8, tq.qgemv_int4)}
+
+
+def reset_small_launches():
+    from tts_tpu_torch.ops import qmatmul as tq
+
+    tq.qgemv_int8.small_launches = tq.qgemv_int4.small_launches = 0
+
+
 def _counting(module, name: str, kind):
     """Replace module.name by a wrapper that counts its calls in a Counter
     under kind(*args) (the forwards a served run made, against which its
@@ -933,6 +948,7 @@ def server(path: str, qtype: str) -> tuple[dict, object]:
     counters = launch_counters()
     for kernel in counters.values():
         kernel.launches = 0
+    reset_small_launches()
     walls = []
     try:
         for kind, payload in REQUESTS:
@@ -998,6 +1014,8 @@ def server(path: str, qtype: str) -> tuple[dict, object]:
     check(counts[gemv] == (per + 1) * forwards["step"] + forwards["prefill"],
           f"{gemv} launched {counts[gemv]}, not (28 * 4 + 1) per decode step and one (the "
           f"lm_head) per prefill: {dict(forwards)}")
+    small = small_launches()
+    check(not any(small.values()), f"Orpheus-3B's GEMVs took the small-call instance: {small}")
     check(counts["flash_decode"] == LAYERS * forwards["step"],
           f"flash_decode launched {counts['flash_decode']}, not 28 per decode step")
     check(counts[gemm] == per * forwards["prefill"] + (per + 1) * forwards["verify"],
@@ -2108,6 +2126,7 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
     counters = launch_counters()
     for kernel in counters.values():
         kernel.launches = 0
+    reset_small_launches()
     summary = {"load_s": load_s, "load_timings": runner.load_timings, "warmup_s": warm_s,
                "requests": {}}
 
@@ -2199,6 +2218,10 @@ def parler_server(path: str, qtype: str, t5_path: str) -> tuple[dict, dict]:
     check(counts[gemv] == per * forwards["step"] and forwards["step"] >= sequential,
           f"{gemv} launched {counts[gemv]}, not {per} per sequential step ({dict(forwards)}, "
           f"{sequential} rows)")
+    small = small_launches()
+    check(small[gemv] == counts[gemv], f"{small[gemv]} of the {counts[gemv]} {gemv} launches "
+          f"took the small-call instance, not all {per} of each row")
+    print(f"the small-call instance: {small}")
     check(counts[gemm] >= per * (4 + PARLER_MAX_TOKENS // 8) + 2 * PARLER_LAYERS,
           f"{gemm} launched {counts[gemm]} < 4 prefills, one greedy request's verify windows "
           f"and one cross-KV precompute")

@@ -91,49 +91,67 @@ def rel_err(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
+@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES + PARLER_SHAPES)
 def test_qgemv_int8_matches_plain(cuda, K, N, xdtype):
     """Both sum the same exact bf16(x) * int8 products in f32, in another
     order (split-K, per-block scaling): relative error bound 1e-4.  x comes
-    in bf16, as the decode layers pass it, or f32, as the head passes it
-    (the kernel rounds it to bf16)."""
+    in bf16, as the decode layers pass it, or f32, as the head and Parler's
+    layers pass it (the kernel rounds it to bf16).  Parler's shapes take
+    the small-call instance (one more count in `.small_launches`), the
+    Orpheus shapes the cluster instance."""
     wq, sc = rand_q8(K, N, cuda, K + N)
     x = torch.randn((1, K), device=cuda).to(xdtype)
-    n = tq.qgemv_int8.launches
+    n, small = tq.qgemv_int8.launches, tq.qgemv_int8.small_launches
     got = tq.qgemv_int8(x, wq, sc)
     torch.cuda.synchronize()
     assert tq.qgemv_int8.launches == n + 1
+    assert tq.qgemv_int8.small_launches == small + ((K, N) in PARLER_SHAPES)
     assert rel_err(got, tq.qgemv_int8_plain(x, wq, sc)) < 1e-4
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
-@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
+@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES + PARLER_SHAPES)
 def test_qgemv_is_one_kernel_with_the_planned_grid(cuda, K, N, packed, xdtype):
     """One device kernel per call, with no cast and no split-K pass, for
     bf16 and f32 x; its grid is gemv_plan's (splits, column tiles), at
-    most one CTA per SM where the column tiles leave SMs free."""
+    most one CTA per SM where the column tiles leave SMs free: at Parler's
+    shapes the small-call instance's (1, column tiles)."""
     w, sc = rand_weight(packed, K, N, cuda, 3)
     x = torch.randn((1, K), device=cuda).to(xdtype)
     fn = tq.qgemv_int4 if packed else tq.qgemv_int8
-    tile_n, splits, _ = tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)
+    tile_n, splits, _ = tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)[:3]
     acts = _ext.device_activity(lambda: fn(x, w, sc))
     assert len(acts) == 1 and "qgemv_kernel" in acts[0]["name"], acts
     assert acts[0]["grid"] == [splits, -(-N // tile_n), 1], acts
     sms, tiles = _ext.sm_count(cuda.index or 0), -(-N // tile_n)
     assert tiles >= sms or tiles * splits <= sms
+    plan = tq.gemv_plan(K, N, sms, packed)
+    assert ((K, N) in PARLER_SHAPES) == (plan.rows > 0 and splits == 1)
+
+
+# the GEMV shapes whose sums the kernel splits the most (x dtype): Orpheus's
+# o and down on bf16 x (the cluster instance), Parler's on f32 and bf16 x
+# (the small-call instance)
+SPLIT_GEMVS = [(*ORPHEUS_SHAPES[1], torch.bfloat16), (*ORPHEUS_SHAPES[3], torch.bfloat16)] + [
+    (K, N, dt) for K, N in PARLER_SHAPES for dt in (torch.float32, torch.bfloat16)]
+SPLIT_IDS = [f"{K}-{N}" + (f"-{str(dt)[6:]}" if (K, N) in PARLER_SHAPES else "")
+             for K, N, dt in SPLIT_GEMVS]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
-@pytest.mark.parametrize("K,N", [ORPHEUS_SHAPES[1], ORPHEUS_SHAPES[3]])
-def test_qgemv_is_deterministic(cuda, K, N, packed):
-    """The splits add in split order inside the cluster (no atomics): two
-    calls give identical bits, at o and down (the most splits)."""
-    assert tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)[1] > 1
+@pytest.mark.parametrize("K,N,xdtype", SPLIT_GEMVS, ids=SPLIT_IDS)
+def test_qgemv_is_deterministic(cuda, K, N, xdtype, packed):
+    """The splits add in a fixed order (no atomics): inside the cluster in
+    split order (Orpheus's o and down, the most splits), or inside the CTA
+    over its threads' slices of K (Parler's shapes): two calls give
+    identical bits."""
+    plan = tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)
+    assert plan.splits > 1 or plan.rows > 0
     w, sc = rand_weight(packed, K, N, cuda, 4)
-    x = torch.randn((1, K), device=cuda).bfloat16()
+    x = torch.randn((1, K), device=cuda).to(xdtype)
     fn = tq.qgemv_int4 if packed else tq.qgemv_int8
     a, b = fn(x, w, sc), fn(x, w, sc)
     torch.cuda.synchronize()
@@ -142,17 +160,19 @@ def test_qgemv_is_deterministic(cuda, K, N, packed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
-def test_qgemv_on_two_streams(cuda, packed):
-    """The cross-split sum keeps no global state: calls on two streams at
-    once (each stream first sleeps on the device while the host queues all
-    of them) each match the plain version."""
-    K, N = ORPHEUS_SHAPES[3]
+@pytest.mark.parametrize("K,N,xdtype", SPLIT_GEMVS[1:], ids=SPLIT_IDS[1:])
+def test_qgemv_on_two_streams(cuda, K, N, xdtype, packed):
+    """The sum over the splits keeps no global state (the cluster
+    instance's at Orpheus's down, the small-call instance's at Parler's
+    shapes): calls on two streams at once (each stream first sleeps on the
+    device while the host queues all of them) each match the plain
+    version."""
     fn = tq.qgemv_int4 if packed else tq.qgemv_int8
     plain = tq.qgemv_int4_plain if packed else tq.qgemv_int8_plain
     runs = []
     for seed in (5, 6):
         w, sc = rand_weight(packed, K, N, cuda, seed)
-        x = torch.randn((1, K), device=cuda).bfloat16()
+        x = torch.randn((1, K), device=cuda).to(xdtype)
         runs.append((torch.cuda.Stream(), (x, w, sc), plain(x, w, sc), []))
     torch.cuda.synchronize()
     for stream, *_ in runs:
@@ -205,17 +225,18 @@ def test_qgemm_int8_takes_every_byte_value(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES)
+@pytest.mark.parametrize("K,N", ORPHEUS_SHAPES + PARLER_SHAPES)
 def test_qgemv_int4_matches_plain(cuda, K, N, xdtype):
     """Both sum the same exact bf16(x) * int4 products in f32, in another
     order (split-K, two nibble planes, per-block scaling): bound 1e-4; x in
     bf16 or f32, as for qgemv_int8."""
     wq4, sc = rand_q4(K, N, cuda, K + N)
     x = torch.randn((1, K), device=cuda).to(xdtype)
-    n = tq.qgemv_int4.launches
+    n, small = tq.qgemv_int4.launches, tq.qgemv_int4.small_launches
     got = tq.qgemv_int4(x, wq4, sc)
     torch.cuda.synchronize()
     assert tq.qgemv_int4.launches == n + 1
+    assert tq.qgemv_int4.small_launches == small + ((K, N) in PARLER_SHAPES)
     assert rel_err(got, tq.qgemv_int4_plain(x, wq4, sc)) < 1e-4
 
 
@@ -693,7 +714,7 @@ def test_parler_gemv_matches_plain_in_one_kernel(cuda, K, N, packed):
     torch.cuda.synchronize()
     assert fn.launches == n + 1
     assert rel_err(got, plain(x, w, sc)) < 1e-4
-    tile_n, splits, _ = tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)
+    tile_n, splits, _ = tq.gemv_plan(K, N, _ext.sm_count(cuda.index or 0), packed)[:3]
     acts = _ext.device_activity(lambda: fn(x, w, sc))
     assert len(acts) == 1 and "qgemv_kernel" in acts[0]["name"], acts
     assert acts[0]["grid"] == [splits, -(-N // tile_n), 1], acts
@@ -850,6 +871,7 @@ def test_orpheus_graph_launch_counts_are_exact(cuda, tiny_orpheus, monkeypatch):
     for request in range(2):
         for k in (tq.qgemv_int8, tq.qgemm_int8, tq.qgemv_int4, tq.qgemm_int4, ta.flash_decode):
             k.launches = 0
+        tq.qgemv_int8.small_launches = 0
         steps.clear()
         resp = runner.generate(GRAPH_TEXT, config)
         torch.cuda.synchronize()
@@ -858,6 +880,8 @@ def test_orpheus_graph_launch_counts_are_exact(cuda, tiny_orpheus, monkeypatch):
         assert n >= resp.timings["decode_steps"] - 1 > 0
         assert (tq.qgemv_int8.launches, tq.qgemm_int8.launches, ta.flash_decode.launches,
                 tq.qgemv_int4.launches, tq.qgemm_int4.launches) == (9 * n + 1, 8, 2 * n, 0, 0)
+        # the tiny layers' linears are small calls; the 157k-column head is not
+        assert tq.qgemv_int8.small_launches == 8 * n
 
 
 @pytest.mark.cuda
@@ -994,11 +1018,12 @@ def test_ar_graph_launch_counts_are_exact(cuda, tiny_ar, model, qtype, monkeypat
     """Launch counters count what the card ran: over a first graph request
     (one eager step, the capture, replays) and a second (replays only),
     Parler 16 GEMVs and 2 prefix_attention per row (8 linears and one
-    self-attention in each of 2 layers; 192 and 24 at 24 layers) and 16
-    GEMMs per prefill; Dia 18 GEMMs and 2 prefix_attention per step (9
-    linears and one self-attention in each of 2 layers; 162 and 18 at 18)
-    and 4 GEMMs per request (the cross-KV); the capture itself adds
-    nothing, and flash_decode and the other format's kernels stay at 0."""
+    self-attention in each of 2 layers; 192 and 24 at 24 layers), every
+    GEMV the small-call instance, and 16 GEMMs per prefill; Dia 18 GEMMs
+    and 2 prefix_attention per step (9 linears and one self-attention in
+    each of 2 layers; 162 and 18 at 18) and 4 GEMMs per request (the
+    cross-KV); the capture itself adds nothing, and flash_decode and the
+    other format's kernels stay at 0."""
     from tts_tpu_torch.models import dia as td
     from tts_tpu_torch.models import parler as tp
     from tts_tpu_torch.models.registry import runner_from_file
@@ -1017,6 +1042,7 @@ def test_ar_graph_launch_counts_are_exact(cuda, tiny_ar, model, qtype, monkeypat
     for request in range(2):
         for k in kernels:
             k.launches = 0
+        tq.qgemv_int8.small_launches = tq.qgemv_int4.small_launches = 0
         steps.clear()
         resp = runner.generate(AR_TEXT[model], config)
         torch.cuda.synchronize()
@@ -1029,6 +1055,8 @@ def test_ar_graph_launch_counts_are_exact(cuda, tiny_ar, model, qtype, monkeypat
         else:
             want[gemm], want[ta.prefix_attention] = 18 * n + 4, 2 * n
         assert {k: k.launches for k in kernels} == want
+        assert (tq.qgemv_int8.small_launches, tq.qgemv_int4.small_launches) == (
+            tq.qgemv_int8.launches, tq.qgemv_int4.launches)
 
 
 @pytest.mark.cuda
@@ -1061,6 +1089,49 @@ def test_parler_step_reads_no_cache_slot_past_the_position(cuda, tiny_ar, qtype)
         assert not cache["counters"].any()
     rest = {S: [a for a in acts[S] if "prefix_attention_kernel" not in a[0]] for S in acts}
     assert rest[512] == rest[4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_0"])
+def test_parler_graph_step_takes_the_small_gemv_and_gives_the_eager_logits(cuda, tiny_ar,
+                                                                            qtype, monkeypatch):
+    """A replay of a captured Parler decode step launches its 16 GEMVs (8
+    linears in each of 2 layers) all as the small-call instance, counted by
+    the format's `.small_launches`, and gives the logits of the same step
+    run eagerly from the same buffers, cache and position."""
+    from tts_tpu_torch.models import parler as tp
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.ops.sampling import init_state
+
+    runner = runner_from_file(tiny_ar("parler", qtype), device="cuda")
+    cfg = runner.cfg
+    gemv = tq.qgemv_int8 if qtype == "Q8_0" else tq.qgemv_int4
+    seen = {}
+    rows_logits = tp._rows_logits
+
+    def keep(*args, **kw):                    # copies the step's logits into a static slot
+        logits = rows_logits(*args, **kw)
+        if "slot" not in seen:
+            seen["slot"] = torch.empty_like(logits)
+        seen["slot"].copy_(logits)
+        return logits
+
+    monkeypatch.setattr(tp, "_rows_logits", keep)
+    cache = tp.init_kv_cache(cfg, cuda)
+    logits = {}
+    for route in ("eager", "graph"):
+        step = tp.ParlerStep(runner.params, cfg, cache, runner.cross_kv, None, cuda, top_k=0,
+                             do_sample=False, use_top_p=False, capture=route == "graph")
+        with torch.inference_mode():
+            for _ in range(2 if route == "graph" else 1):    # the capture, then a replay
+                step.load(tp.init_loop_state(cfg), 20, init_state(cfg.n_output_heads, cuda))
+                gemv.launches = gemv.small_launches = 0
+                step.run()
+        torch.cuda.synchronize()
+        assert gemv.launches == gemv.small_launches == 2 * 8
+        logits[route] = seen["slot"].clone()
+    assert step.graph is not None
+    assert torch.equal(logits["graph"], logits["eager"])
 
 
 @pytest.mark.cuda

@@ -204,6 +204,21 @@ ORPHEUS_GEMMS = {"qkv": (3072, 5120), "o": (3072, 3072), "gateup": (3072, 16384)
 SMS = 132      # streaming multiprocessors of an H100 SXM
 # Orpheus-3B's linears at M == 1 (K, N): the four above and the padded lm_head
 ORPHEUS_GEMVS = {**ORPHEUS_GEMMS, "lm_head": (3072, 157696)}
+# the shards of a tp = 2 Orpheus-3B (Q8_0; chip_smoke.py TP2_SHAPES), and
+# gemv_plan's cluster geometry at each that is not a small call:
+# (tile_n, splits, per) for int8 and int4
+TP2_GEMVS = {"tp2 q": (3072, 1536), "tp2 k/v": (3072, 512), "tp2 gate/up": (3072, 4096),
+             "tp2 o": (1536, 3072), "tp2 down": (4096, 3072), "tp2 lm_head": (3072, 78848)}
+CLUSTER_PLANS = {
+    "qkv": ((256, 4, 24), (256, 4, 12)), "o": ((256, 8, 12), (256, 8, 6)),
+    "gateup": ((256, 2, 48), (256, 2, 24)), "down": ((256, 8, 32), (256, 8, 16)),
+    "lm_head": ((256, 2, 48), (256, 1, 48)), "tp2 q": ((256, 8, 12), (256, 8, 6)),
+    "tp2 gate/up": ((256, 8, 12), (256, 8, 6)), "tp2 o": ((256, 8, 6), (256, 8, 3)),
+    "tp2 down": ((256, 8, 16), (256, 8, 8)), "tp2 lm_head": ((256, 2, 48), (256, 1, 48))}
+# Parler-TTS mini v1's decoder linears (K, N): q/k/v/o and the
+# cross-attention's q/o (hidden 1024), fc1, fc2
+PARLER_GEMVS = {"parler-attn": (1024, 1024), "parler-fc1": (1024, 4096),
+                "parler-fc2": (4096, 1024)}
 
 
 def gemv_smem_bytes(packed: bool, tile_n: int, per: int, splits: int) -> int:
@@ -256,11 +271,11 @@ def test_kernel_geometry_is_one_source():
                     assert per_sm * (smem + 1024) <= 228 * 1024, (fmt, m_tile, tile_n, x_f32)
     for packed in (False, True):
         for K, N in ORPHEUS_GEMVS.values():
-            tile_n, splits, per = tq.gemv_plan(K, N, SMS, packed)
+            tile_n, splits, per = tq.gemv_plan(K, N, SMS, packed)[:3]
             smem = gemv_smem_bytes(packed, tile_n, per, splits)
             assert g["GEMV_CTAS_PER_SM"] * (smem + 1024) <= 228 * 1024, (K, N, packed, smem)
         for K in (3072, 8192, 65536):
-            _, splits, per = tq.gemv_plan(K, 3072, SMS, packed)
+            _, splits, per = tq.gemv_plan(K, 3072, SMS, packed)[:3]
             assert splits <= g["GEMV_MAX_CLUSTER"]
             assert per * (64 if packed else 32) <= g["GEMV_MAX_X"]
 
@@ -428,7 +443,7 @@ def test_qgemm_on_bf16_x_needs_no_lo_term(M, packed):
 def gemv_split_blocks(K, N, packed, sms=SMS):
     """The weight blocks (packed blocks for int4) each split of
     gemv_plan(K, N) takes, in order."""
-    _, splits, per = tq.gemv_plan(K, N, sms, packed)
+    _, splits, per = tq.gemv_plan(K, N, sms, packed)[:3]
     nblk = K // (64 if packed else 32)
     return [list(range(s * per, min((s + 1) * per, nblk))) for s in range(splits)]
 
@@ -443,7 +458,7 @@ def test_gemv_plan_fills_the_card_at_orpheus_shapes(name, packed):
     blocks at most (int8: two splits; int4: none)."""
     K, N = ORPHEUS_GEMVS[name]
     g = _ext.GEOMETRY
-    tile_n, splits, per = tq.gemv_plan(K, N, SMS, packed)
+    tile_n, splits, per = tq.gemv_plan(K, N, SMS, packed)[:3]
     assert tile_n == g["GEMV_TILE_N"]
     tiles = -(-N // tile_n)
     assert splits & (splits - 1) == 0 and splits <= g["GEMV_MAX_CLUSTER"]
@@ -455,33 +470,124 @@ def test_gemv_plan_fills_the_card_at_orpheus_shapes(name, packed):
                               "lm_head": 616 if packed else 1232}[name]
 
 
+def small_rule(K, N, sms, packed):
+    """(tile_n, rows) of the small-call instance by its rule, or None where
+    the call takes the cluster instance: at most 4,194,304 weights and x
+    within GEMV_MAX_X; the narrowest tile of 16-128 whose tiles fit in one
+    wave (the widest where none does), narrowed while 32 rows a thread would
+    pass GEMV_SMALL_MAX_THREADS; rows halved from 32 while the CTA has fewer
+    than 512 threads or not whole warps, and never past the most threads;
+    None where that leaves no whole warps within the most."""
+    g = _ext.GEOMETRY
+    most = g["GEMV_SMALL_MAX_THREADS"]
+    if K * N > 1 << 22 or K > g["GEMV_MAX_X"]:
+        return None
+    nblk = K // (64 if packed else 32)
+    tile = next((t for t in (16, 32, 64, 128) if -(-N // t) <= sms), 128)
+    while tile > 16 and tile // 4 * nblk > most:
+        tile //= 2
+    for rows in (32, 16, 8, 4, 2, 1):
+        threads = tile // 4 * nblk * 32 // rows
+        if threads > most:
+            return None
+        if threads % 32 == 0 and (threads >= 512 or rows == 1 or 2 * threads > most):
+            return tile, rows
+    return None
+
+
+def small_geometry_holds(K, N, plan, packed, sms):
+    """The small-call instance's rule for its plan: the narrowest column
+    tile of 16-128 whose tiles fit in one wave (the widest where none
+    does), narrowed while a thread per 32 rows and 4 columns would pass
+    GEMV_SMALL_MAX_THREADS; one CTA per column tile (no split across CTAs);
+    every thread 4 columns and `rows` rows of one weight block, so the
+    threads cover the tile's rows exactly once, in whole warps, 512 of
+    them where K has rows enough (fewer rows a thread would pass the
+    512); shared memory under the 48 KB a launch may take without asking."""
+    g = _ext.GEOMETRY
+    most = g["GEMV_SMALL_MAX_THREADS"]
+    rows = K // (2 if packed else 1)
+    tile = next((t for t in (16, 32, 64, 128) if -(-N // t) <= sms), 128)
+    while tile > 16 and tile // 4 * rows // 32 > most:
+        tile //= 2
+    assert plan.tile_n == tile
+    assert plan.splits == 1 and plan.per * 32 == rows
+    assert plan.rows in (1, 2, 4, 8, 16, 32)
+    threads = plan.tile_n // 4 * rows // plan.rows     # as csrc/qmatmul.cuh launch_qgemv
+    assert threads % 32 == 0 and threads <= most
+    assert threads == 512 or plan.rows == 1 or 2 * threads > most
+    assert K * N <= 1 << 22 and K <= g["GEMV_MAX_X"]
+    smem = ((K + K // 32 + 3) // 4 * 4 + (threads // 32 * plan.tile_n if threads > 32 else 0)) * 4
+    assert smem <= 48 * 1024
+    return threads
+
+
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
 @pytest.mark.parametrize("sms", [1, 8, 132])
 def test_gemv_plan_covers_every_block_once(sms, packed):
     """Ragged K and N (K % 64 == 0, N % 16 == 0): the splits take every
     weight block exactly once, in order, none is empty; the column tiles
-    cover N; each CTA's x slice fits the kernel's bound."""
+    cover N; each CTA's x slice fits the kernel's bound.  Each instance
+    keeps its rule: the cluster instance's CTAs take GEMV_TILE_N columns
+    and split K within a cluster; the small-call instance's (calls of at
+    most 4,194,304 weights) take all of K (small_geometry_holds)."""
     g = _ext.GEOMETRY
     for K in (64, 192, 3072, 8192, 8256, 40960):
         for N in (16, 144, 3088, 157696):
-            tile_n, splits, per = tq.gemv_plan(K, N, sms, packed)
+            plan = tq.gemv_plan(K, N, sms, packed)
+            tile_n, splits, per = plan[:3]
             parts = gemv_split_blocks(K, N, packed, sms)
             assert sum(parts, []) == list(range(K // (64 if packed else 32))) and all(parts)
-            assert tile_n == g["GEMV_TILE_N"]
+            assert (small_rule(K, N, sms, packed) or (g["GEMV_TILE_N"], 0)) == (tile_n, plan.rows)
+            if plan.rows:
+                small_geometry_holds(K, N, plan, packed, sms)
             assert len(parts) == splits <= g["GEMV_MAX_CLUSTER"]
             assert per * (64 if packed else 32) <= g["GEMV_MAX_X"]
 
 
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("name", [*PARLER_GEMVS, "tp2 k/v"])
+def test_gemv_plan_takes_the_small_instance_at_parler_shapes(name, packed):
+    """Every Parler-TTS mini v1 linear, and the tp = 2 shard's k/v, takes
+    the small-call instance: one CTA per column tile, no cluster (attn and
+    fc2: 64 tiles of 16 columns; fc1: 128 of 32; the k/v shard: 32 of
+    16), 512 threads a CTA (the k/v shard: 384), and every warp it
+    launches holds at least a whole weight block's rows (its 32 / (tile /
+    4) slices of `rows` rows each)."""
+    K, N = {**PARLER_GEMVS, **TP2_GEMVS}[name]
+    plan = tq.gemv_plan(K, N, SMS, packed)
+    assert plan.rows > 0
+    threads = small_geometry_holds(K, N, plan, packed, SMS)
+    assert -(-N // plan.tile_n) == {"parler-fc1": 128, "tp2 k/v": 32}.get(name, 64)
+    assert threads == (384 if name == "tp2 k/v" else 512)
+    assert 32 // (plan.tile_n // 4) * plan.rows >= 32
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("name", list(CLUSTER_PLANS))
+def test_gemv_plan_keeps_the_cluster_instance_at_orpheus_shapes(name, packed):
+    """Every single-card Orpheus-3B linear (the smallest, o, holds 9.4 M
+    weights) and every tp = 2 shard above 4,194,304 weights keeps the
+    cluster instance with the (tile_n, splits, per) it had before the
+    small-call instance existed."""
+    K, N = {**ORPHEUS_GEMVS, **TP2_GEMVS}[name]
+    assert tq.gemv_plan(K, N, SMS, packed) == (*CLUSTER_PLANS[name][packed], 0)
+
+
 def emulate_qgemv(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, packed: bool,
-                  sms: int = SMS) -> torch.Tensor:
-    """The Hopper GEMV's arithmetic on the CPU, in its order: x rounded to
+                  sms: int = SMS, plan=None) -> torch.Tensor:
+    """The Hopper GEMV's arithmetic on the CPU, in its order, for the
+    instance of `plan` (gemv_plan's on `sms` SMs by default): x rounded to
     bf16; per weight block (and nibble plane) the exact products summed in
-    f32, then the block's f16 scale on that sum, low plane first; each warp
-    sums its blocks in order (a warp takes 128 columns: a CTA of CW warps
-    side by side gives warp w the range's blocks w / CW, w / CW +
-    GEMV_WARPS / CW, ...), a column's warps are added in warp order, and
-    the cluster adds its splits in order."""
-    kw = _ext.GEOMETRY["GEMV_WARPS"] * 128 // _ext.GEOMETRY["GEMV_TILE_N"]   # warps per column
+    f32, then the block's f16 scale on that sum, low plane first.  The
+    cluster instance: each warp sums its blocks in order (a warp takes 128
+    columns: a CTA of CW warps side by side gives warp w the range's blocks
+    w / CW, w / CW + GEMV_WARPS / CW, ...), a column's warps are added in
+    warp order, and the cluster adds its splits in order.  The small-call
+    instance: per thread the `rows` rows of its slice (a part of one block)
+    and its planes' scales, then per column a pairwise tree over the slices
+    of a warp (32 / (tile_n / 4) in a row) and the warps in order."""
+    plan = plan or tq.gemv_plan(x.shape[-1], w.shape[1], sms, packed)
     xb = x.to(torch.bfloat16).float()[0]
     K, N = xb.shape[0], w.shape[1]
     if packed:
@@ -490,8 +596,25 @@ def emulate_qgemv(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, packed
     else:
         planes, rows, half = [w.float()], K, 0
     nblk = rows // 32
+    if plan.rows:
+        r = plan.rows
+        acc = torch.zeros((rows // r, N))
+        for p, wp in enumerate(planes):
+            part = torch.einsum("sr,srn->sn", xb[p * half: p * half + rows].view(-1, r),
+                                wp.view(-1, r, N))
+            acc = acc + part * scales[p * nblk:(p + 1) * nblk].float().repeat_interleave(32 // r, 0)
+        per_warp = 32 // (plan.tile_n // 4)
+        acc = acc.view(-1, per_warp, N)
+        while acc.shape[1] > 1:                  # the warp's xor shuffles: pairs of slices
+            acc = acc[:, 0::2] + acc[:, 1::2]
+        out = torch.zeros(N)
+        for warp_sum in acc[:, 0]:
+            out = out + warp_sum
+        return out[None]
+    kw = _ext.GEOMETRY["GEMV_WARPS"] * 128 // _ext.GEOMETRY["GEMV_TILE_N"]   # warps per column
     out = torch.zeros(N)
-    for blocks in gemv_split_blocks(K, N, packed, sms):
+    for s in range(plan.splits):
+        blocks = list(range(s * plan.per, min((s + 1) * plan.per, nblk)))
         cta = torch.zeros(N)
         for k in range(kw):
             acc = torch.zeros(N)
@@ -504,24 +627,32 @@ def emulate_qgemv(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, packed
     return out[None]
 
 
-@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("case", [1, 132, *PARLER_GEMVS])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
-def test_qgemv_arithmetic_matches_plain_and_jax(packed, xdtype, sms):
+def test_qgemv_arithmetic_matches_plain_and_jax(packed, xdtype, case):
     """The kernel's arithmetic (emulated) within 1e-4 of the plain version
     (the card test's bound) and within the plain version's own tolerance
-    of tts_tpu's quantized_matmul / quantized_matmul_q4 at M = 1.  K = 1024
-    splits 8 ways at 132 SMs (one block per warp at most); at 1 SM it does
-    not split and each warp sums 4 (int4) or 8 (int8) blocks."""
-    K, N = 1024, 256
-    rng = np.random.default_rng(7 + packed + 10 * sms)
+    of tts_tpu's quantized_matmul / quantized_matmul_q4 at M = 1.  Cases 1
+    and 132: the cluster instance at K = 1024, N = 256 on a card of that
+    many SMs: K splits 8 ways at 132 SMs (one block per warp at most); at 1
+    SM it does not split and each warp sums 4 (int4) or 8 (int8) blocks.
+    The Parler-TTS mini v1 cases: gemv_plan's small-call instance on 132
+    SMs, K split among a CTA's threads (2-32 rows each)."""
+    sms = case if isinstance(case, int) else SMS
+    K, N = (1024, 256) if isinstance(case, int) else PARLER_GEMVS[case]
+    rng = np.random.default_rng(7 + packed + 10 * (sms if isinstance(case, int) else K + N))
     w, sc = make_q4(rng, K, N) if packed else make_q8(rng, K, N)
     x = rng.standard_normal((1, K)).astype(np.float32)
     xt = torch.from_numpy(x).to(xdtype)
     args = (xt, torch.from_numpy(w), torch.from_numpy(sc.astype(np.float16)))
-    _, splits, _ = tq.gemv_plan(K, N, sms, packed)
-    assert (splits > 1) == (sms > 1)
-    got = emulate_qgemv(*args, packed=packed, sms=sms)
+    if isinstance(case, int):
+        plan = tq._gemv_cluster_plan(K, N, sms, packed)
+        assert (plan.splits > 1) == (sms > 1)
+    else:
+        plan = tq.gemv_plan(K, N, sms, packed)
+        assert plan.rows > 0 and plan.splits == 1
+    got = emulate_qgemv(*args, packed=packed, plan=plan)
     want = (tq.qgemv_int4_plain if packed else tq.qgemv_int8_plain)(*args)
     assert ((got - want).abs().max() / want.abs().max()).item() < 1e-4
     xj = np.asarray(jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16).astype(jnp.float32))

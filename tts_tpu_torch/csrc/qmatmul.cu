@@ -23,6 +23,12 @@
 //     memory in split order (identical bits every run, no global state),
 //     and x is read as bf16 or f32 and rounded to bf16 as it is staged,
 //     so a call is one launch with no cast kernel.
+// That plan was tuned on Orpheus-3B.  A call of a few hundred KB to a few
+// MB (Parler-TTS mini v1's linears) got 32 CTAs from it, half their warps
+// idle, behind two cluster barriers: so gemv_plan gives such calls a second
+// instance of the kernel (qmatmul.cuh gemv_small), whose narrow column
+// tiles alone cover the card and whose CTAs each take all of K, split
+// among their threads, with every weight load issued first and no cluster.
 //
 // qgemm_int8 replaces ::_qmm_kernel (M > 1: prefill; later Dia's cross-KV
 // at M up to 2048).  Bound: the weight bytes over 3.35 TB/s at every M up
@@ -51,11 +57,14 @@
 //     blocks in flight while the tensor cores work on the oldest.
 #include "qmatmul.cuh"
 
-// x [K] bf16 (x_f32: f32); K split into `splits` ranges of `per` 32-row blocks
-// (ops/qmatmul.py::gemv_plan), the splits of a column tile one cluster
+// x [K] bf16 (x_f32: f32); the geometry of ops/qmatmul.py::gemv_plan: rows 0,
+// the cluster instance (K split into `splits` ranges of `per` 32-row blocks, the
+// splits of a column tile one cluster); rows > 0, the small-call instance
+// (rows weight rows a thread, tile_n columns a CTA)
 extern "C" int qgemv_int8(const void* x, int x_f32, const void* wq, const void* scales, void* out,
-                          int K, int N, int splits, int per, void* stream) {
-  return tts::launch_qgemv<false>(x, x_f32, wq, scales, out, K, N, splits, per, stream);
+                          int K, int N, int tile_n, int splits, int per, int rows, void* stream) {
+  return tts::launch_qgemv<false>(x, x_f32, wq, scales, out, K, N, tile_n, splits, per, rows,
+                                  stream);
 }
 
 // x [M, K] bf16 (x_f32: f32); geometry from ops/qmatmul.py::gemm_plan

@@ -79,6 +79,36 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 }
 static_assert(GEMV_RING * GEMV_GROUPS <= 8, "cp_async_wait_n covers the groups in flight");
 
+// One weight word (this lane's 4 columns of one row) times its x: the exact
+// int x bf16(x) products added in f32 to the row's plane sums (int4: the
+// low nibbles meet xl, row i's, the high ones xh, row i + K/2's).
+template <bool PACKED>
+__device__ __forceinline__ void gemv_word(uint32_t v, float xl, float xh, float (&plo)[4],
+                                          float (&phi)[4]) {
+  if constexpr (PACKED) {
+    const uint32_t lo = (v & 0x0F0F0F0Fu) ^ 0x08080808u;
+    const uint32_t hi = ((v >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      plo[j] = fmaf(xl, byte_minus(lo, j, I4_BIAS), plo[j]);
+      phi[j] = fmaf(xh, byte_minus(hi, j, I4_BIAS), phi[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) plo[j] = fmaf(xl, byte_minus(v ^ 0x80808080u, j, I8_BIAS), plo[j]);
+  }
+}
+
+// acc += part * s, per column: s the 4 columns' f16 block scales of one plane
+__device__ __forceinline__ void gemv_scale(uint2 s, const float (&part)[4], float (&acc)[4]) {
+  const float2 s01 = __half22float2(*reinterpret_cast<const __half2*>(&s.x));
+  const float2 s23 = __half22float2(*reinterpret_cast<const __half2*>(&s.y));
+  acc[0] = fmaf(part[0], s01.x, acc[0]);
+  acc[1] = fmaf(part[1], s01.y, acc[1]);
+  acc[2] = fmaf(part[2], s23.x, acc[2]);
+  acc[3] = fmaf(part[3], s23.y, acc[3]);
+}
+
 // One 32-row block (slot st) of this lane's 4 columns into acc, each group
 // of rows as it lands: the exact int x bf16(x) products summed in f32 per
 // block and plane, then each plane's f16 block scale on its partial sum
@@ -101,42 +131,19 @@ __device__ __forceinline__ void gemv_block(const unsigned char* st, const __nv_b
     unpack_bf16x8(*reinterpret_cast<const uint4*>(xlo + r0), xl);
     if constexpr (PACKED) unpack_bf16x8(*reinterpret_cast<const uint4*>(xhi + r0), xh);
 #pragma unroll
-    for (int u = 0; u < GEMV_GROUP_ROWS; ++u) {
-      const uint32_t v = wr[(r0 + u) * (GEMV_WARP_N / 4)];
-      if constexpr (PACKED) {
-        const uint32_t lo = (v & 0x0F0F0F0Fu) ^ 0x08080808u;
-        const uint32_t hi = ((v >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          plo[j] = fmaf(xl[u], byte_minus(lo, j, I4_BIAS), plo[j]);
-          phi[j] = fmaf(xh[u], byte_minus(hi, j, I4_BIAS), phi[j]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          plo[j] = fmaf(xl[u], byte_minus(v ^ 0x80808080u, j, I8_BIAS), plo[j]);
-      }
-    }
+    for (int u = 0; u < GEMV_GROUP_ROWS; ++u)
+      gemv_word<PACKED>(wr[(r0 + u) * (GEMV_WARP_N / 4)], xl[u], PACKED ? xh[u] : 0.f, plo, phi);
   }
 #pragma unroll
-  for (int p = 0; p < L::PLANES; ++p) {
-    const uint2 s =
-        *reinterpret_cast<const uint2*>(st + L::W_BYTES + p * GEMV_WARP_N * 2 + lane * 8);
-    const float2 s01 = __half22float2(*reinterpret_cast<const __half2*>(&s.x));
-    const float2 s23 = __half22float2(*reinterpret_cast<const __half2*>(&s.y));
-    const float* part = p == 0 ? plo : phi;
-    acc[0] = fmaf(part[0], s01.x, acc[0]);
-    acc[1] = fmaf(part[1], s01.y, acc[1]);
-    acc[2] = fmaf(part[2], s23.x, acc[2]);
-    acc[3] = fmaf(part[3], s23.y, acc[3]);
-  }
+  for (int p = 0; p < L::PLANES; ++p)
+    gemv_scale(*reinterpret_cast<const uint2*>(st + L::W_BYTES + p * GEMV_WARP_N * 2 + lane * 8),
+               p == 0 ? plo : phi, acc);
 }
 
-// out [N] f32 = x [K] @ dequant(w, scales): w int8 [K, N], or (PACKED)
-// int4 [K/2, N] with row i in the low nibble and row i + K/2 in the high
-// one; scales f16 [K/32, N]; x bf16, or (XF32) f32 rounded here to bf16.
-// grid (splits, column tiles of GEMV_TILE_N), GEMV_THREADS threads; CTA
-// (s, t) takes weight blocks [s * per, (s + 1) * per) of column tile t.
+// The cluster instance (qgemv_kernel<PACKED, XF32, 0>), for calls whose
+// weights fill the card: grid (splits, column tiles of GEMV_TILE_N),
+// GEMV_THREADS threads; CTA (s, t) takes weight blocks [s * per, (s + 1) *
+// per) of column tile t.
 // Warp w takes the tile's GEMV_WARP_N columns w % CW and the range's blocks
 // w / CW, w / CW + KW, ... (CW = GEMV_CW, KW = GEMV_WARPS / CW), keeping
 // GEMV_RING of them in flight through cp.async with no CTA barrier; the CW
@@ -147,9 +154,10 @@ __device__ __forceinline__ void gemv_block(const unsigned char* st, const __nv_b
 // are one thread-block cluster (dims (splits, 1, 1)) and add through
 // distributed shared memory.
 template <bool PACKED, bool XF32>
-__global__ void __launch_bounds__(GEMV_THREADS, TTS_GEMV_CTAS_PER_SM)
-qgemv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
-             const __half* __restrict__ scales, float* __restrict__ out, int K, int N, int per) {
+__device__ __forceinline__ void gemv_cluster(const void* __restrict__ x,
+                                             const int8_t* __restrict__ w,
+                                             const __half* __restrict__ scales,
+                                             float* __restrict__ out, int K, int N, int per) {
   using L = GemvSmem<PACKED>;
   constexpr int CW = GEMV_CW, KW = GEMV_WARPS / CW;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -264,15 +272,178 @@ qgemv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// One GEMV call: grid (splits, column tiles), the splits of a column tile
-// one cluster; returns a CUDA error code (0: launched).
+// The small-call instance (qgemv_kernel<PACKED, XF32, ROWS>, ROWS > 0), for
+// calls whose weights are too few to keep GEMV_TILE_N-wide CTAs on every SM
+// (ops/qmatmul.py::gemv_plan: Parler-TTS mini v1's linears, 0.6-2.4 MB of
+// Q4_0): the column tiles narrow to tile_n (4-128; the plan takes 16-128) so
+// that they alone spread the call over the card, a CTA takes every row of
+// its columns, and K splits among its threads, never across CTAs: no
+// cluster, no barrier between CTAs, no distributed shared memory.  grid
+// (1, column tiles), tile_n / 4 * rows /
+// ROWS threads (rows: of w), all of them busy: thread t takes the 4 columns
+// t % (tile_n / 4) and the ROWS rows of slice t / (tile_n / 4), which lie in
+// one weight block, and loads every weight word and scale it adds as its
+// first instructions; while they fly, the CTA stages x.  The sums: per
+// thread its slice in row order (gemv_word), each plane's block scale on its
+// plane sum, low plane first (gemv_block's order); then per column a
+// pairwise tree over the slices of a warp (xor shuffles: both partners of an
+// add hold the same bits) and the warps in warp order through shared memory.
+// Identical bits every run, and no state outside the launch.
+struct GemvSmallSmem {
+  // x as the f32 of its bf16, one pad word after every 32 (a warp's slices
+  // read rows 32 apart on distinct banks), 16-byte aligned; then the warps'
+  // sums [warps][tile_n]
+  __host__ __device__ static constexpr int x_floats(int K) { return (K + K / 32 + 3) & ~3; }
+  __host__ __device__ static constexpr int total(int K, int threads, int tile_n) {
+    return (x_floats(K) + (threads > 32 ? threads / 32 * tile_n : 0)) * 4;
+  }
+};
+constexpr int GEMV_SMALL_MAX_THREADS = TTS_GEMV_SMALL_MAX_THREADS;
+
+template <bool PACKED, bool XF32, int ROWS>
+__device__ __forceinline__ void gemv_small(const void* __restrict__ x,
+                                           const int8_t* __restrict__ w,
+                                           const __half* __restrict__ scales,
+                                           float* __restrict__ out, int K, int N) {
+  static_assert(ROWS >= 1 && QBLOCK % ROWS == 0, "a thread's rows lie in one weight block");
+  constexpr int PLANES = PACKED ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = K / PLANES, nblk = rows / QBLOCK;
+  const int groups = blockDim.x * ROWS / rows;            // 4-column groups of the tile
+  const int tile_n = 4 * groups;
+  const int r0 = tid / groups * ROWS;                     // this thread's rows r0 .. + ROWS - 1
+  const int n = blockIdx.y * tile_n + tid % groups * 4;   // and its columns n .. n + 3
+  const bool live = n < N;                                // (N % 16 == 0: all 4 or none)
+  uint32_t v[ROWS];
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u)
+    v[u] = live ? __ldg(reinterpret_cast<const unsigned int*>(w + (size_t)(r0 + u) * N + n)) : 0u;
+  uint2 s[PLANES];                                        // block r0 / 32, and + K/64 (high plane)
+#pragma unroll
+  for (int p = 0; p < PLANES; ++p)
+    s[p] = live ? __ldg(reinterpret_cast<const uint2*>(
+                      scales + (size_t)(r0 / QBLOCK + p * nblk) * N + n))
+                : make_uint2(0u, 0u);
+
+  // while they fly: xs[i + i / 32] = bf16(x[i])
+  float* xs = reinterpret_cast<float*>(smem);
+  for (int i = tid * 4; i < K; i += blockDim.x * 4) {
+    float f[4];
+    if constexpr (XF32) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(x) + i));
+      f[0] = round_bf16(a.x), f[1] = round_bf16(a.y);
+      f[2] = round_bf16(a.z), f[3] = round_bf16(a.w);
+    } else {
+      const auto* xb = static_cast<const __nv_bfloat16*>(x) + i;
+      unpack_bf16x4(__ldg(reinterpret_cast<const uint2*>(xb)), f);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) xs[i + i / 32 + j] = f[j];   // i % 4 == 0: one pad offset
+  }
+  __syncthreads();
+
+  // the slice's rows are one run of xs; the high plane's rows + K/2 another
+  const float* xl = xs + r0 + r0 / 32;
+  const float* xh = xs + (rows + r0) + (rows + r0) / 32;
+  float plo[4] = {0.f, 0.f, 0.f, 0.f}, phi[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) gemv_word<PACKED>(v[u], xl[u], PACKED ? xh[u] : 0.f, plo, phi);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  gemv_scale(s[0], plo, acc);
+  if constexpr (PACKED) gemv_scale(s[1], phi, acc);
+
+#pragma unroll
+  for (int m = 1; m < 32; m <<= 1) {
+    if (m < groups) continue;                             // lanes m apart: the next slice up
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
+  }
+  // lanes 0 .. groups - 1 hold the warp's sums, column group = lane
+  const int warps = blockDim.x / 32;
+  if (warps == 1) {
+    if (lane < groups && live)
+      *reinterpret_cast<float4*>(out + n) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    return;
+  }
+  float* red = xs + GemvSmallSmem::x_floats(K);
+  if (lane < groups)
+    *reinterpret_cast<float4*>(red + warp * tile_n + lane * 4) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  __syncthreads();
+  for (int c = tid; c < tile_n; c += blockDim.x) {
+    float sum = red[c];
+    for (int k = 1; k < warps; ++k) sum += red[k * tile_n + c];
+    const int col = blockIdx.y * tile_n + c;
+    if (col < N) out[col] = sum;
+  }
+}
+
+// out [N] f32 = x [K] @ dequant(w, scales): w int8 [K, N], or (PACKED)
+// int4 [K/2, N] with row i in the low nibble and row i + K/2 in the high
+// one; scales f16 [K/32, N]; x bf16, or (XF32) f32 rounded here to bf16.
+// ROWS 0: the cluster instance (gemv_cluster); ROWS > 0: the small-call
+// instance with ROWS weight rows per thread (gemv_small, which ignores per:
+// its one CTA per column tile takes all of K).
+template <bool PACKED, bool XF32, int ROWS>
+__global__ void __launch_bounds__(ROWS ? GEMV_SMALL_MAX_THREADS : GEMV_THREADS,
+                                  ROWS ? 1 : TTS_GEMV_CTAS_PER_SM)
+qgemv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
+             const __half* __restrict__ scales, float* __restrict__ out, int K, int N, int per) {
+  if constexpr (ROWS > 0)
+    gemv_small<PACKED, XF32, ROWS>(x, w, scales, out, K, N);
+  else
+    gemv_cluster<PACKED, XF32>(x, w, scales, out, K, N, per);
+}
+
+template <bool PACKED, bool XF32>
+using GemvKernel = decltype(&qgemv_kernel<PACKED, XF32, 0>);
+
+// the small-call instance of ROWS rows per thread (nullptr: none)
+template <bool PACKED, bool XF32>
+GemvKernel<PACKED, XF32> small_gemv_kernel(int rows) {
+  switch (rows) {
+    case 1: return &qgemv_kernel<PACKED, XF32, 1>;
+    case 2: return &qgemv_kernel<PACKED, XF32, 2>;
+    case 4: return &qgemv_kernel<PACKED, XF32, 4>;
+    case 8: return &qgemv_kernel<PACKED, XF32, 8>;
+    case 16: return &qgemv_kernel<PACKED, XF32, 16>;
+    case 32: return &qgemv_kernel<PACKED, XF32, 32>;
+    default: return nullptr;
+  }
+}
+
+// One GEMV call, as ops/qmatmul.py::gemv_plan sets it: rows 0, the cluster
+// instance, grid (splits, column tiles of GEMV_TILE_N), the splits of a
+// column tile one cluster; rows > 0, the small-call instance, grid (1,
+// column tiles of tile_n), tile_n / 4 * (K rows) / rows threads (splits 1,
+// per every block).  Returns a CUDA error code (0: launched).
 template <bool PACKED>
 int launch_qgemv(const void* x, int x_f32, const void* w, const void* scales, void* out, int K,
-                 int N, int splits, int per, void* stream) {
+                 int N, int tile_n, int splits, int per, int rows, void* stream) {
   using L = GemvSmem<PACKED>;
-  if (splits < 1 || splits > GEMV_MAX_CLUSTER || L::x_bytes(per) > GEMV_MAX_X * 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = x_f32 ? &qgemv_kernel<PACKED, true> : &qgemv_kernel<PACKED, false>;
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto wq = static_cast<const int8_t*>(w);
+  const auto sc = static_cast<const __half*>(scales);
+  const auto o = static_cast<float*>(out);
+  if (rows > 0) {
+    const int wrows = PACKED ? K / 2 : K, groups = tile_n / 4;
+    const int threads = groups * (wrows / rows);
+    const auto kernel = x_f32 ? small_gemv_kernel<PACKED, true>(rows)
+                              : small_gemv_kernel<PACKED, false>(rows);
+    if (kernel == nullptr || tile_n < 4 || tile_n > 128 || (groups & (groups - 1)) ||
+        splits != 1 || per * QBLOCK != wrows || threads % 32 || threads < 32 ||
+        threads > GEMV_SMALL_MAX_THREADS || K > GEMV_MAX_X)
+      return bad;
+    kernel<<<dim3(1, (N + tile_n - 1) / tile_n, 1), threads,
+             GemvSmallSmem::total(K, threads, tile_n), st>>>(x, wq, sc, o, K, N, per);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (tile_n != GEMV_TILE_N || splits < 1 || splits > GEMV_MAX_CLUSTER ||
+      L::x_bytes(per) > GEMV_MAX_X * 2)
+    return bad;
+  const auto kernel = x_f32 ? &qgemv_kernel<PACKED, true, 0> : &qgemv_kernel<PACKED, false, 0>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L::TOTAL_MAX);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -280,7 +451,7 @@ int launch_qgemv(const void* x, int x_f32, const void* w, const void* scales, vo
   cfg.gridDim = dim3(splits, (N + L::TN - 1) / L::TN, 1);
   cfg.blockDim = dim3(GEMV_THREADS, 1, 1);
   cfg.dynamicSmemBytes = L::total(per, splits);
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = st;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
   cluster[0].val.clusterDim.x = splits;
@@ -288,8 +459,7 @@ int launch_qgemv(const void* x, int x_f32, const void* w, const void* scales, vo
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, x, static_cast<const int8_t*>(w),
-                           static_cast<const __half*>(scales), static_cast<float*>(out), K, N, per);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, wq, sc, o, K, N, per);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

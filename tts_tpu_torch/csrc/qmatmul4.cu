@@ -28,6 +28,8 @@
 //   - two kernels per call: the splits add in a thread-block cluster
 //     through distributed shared memory, in split order, and f32 or bf16
 //     x is rounded to bf16 as it is staged: one launch per call.
+// Small calls (Parler-TTS mini v1's 0.6-2.4 MB) take the kernel's
+// small-call instance instead (qmatmul.cu, qmatmul.cuh gemv_small).
 // The TPU kernel's block-diagonal expansion of x feeds its MXU and has no
 // purpose here.
 //
@@ -59,11 +61,14 @@
 // The TPU kernel's block-diagonal expansion of x has no purpose here.
 #include "qmatmul.cuh"
 
-// x [K] bf16 (x_f32: f32); K split into `splits` ranges of `per` packed blocks
-// (ops/qmatmul.py::gemv_plan), the splits of a column tile one cluster
+// x [K] bf16 (x_f32: f32); the geometry of ops/qmatmul.py::gemv_plan: rows 0,
+// the cluster instance (K split into `splits` ranges of `per` packed blocks, the
+// splits of a column tile one cluster); rows > 0, the small-call instance
+// (rows weight rows a thread, tile_n columns a CTA)
 extern "C" int qgemv_int4(const void* x, int x_f32, const void* wq4, const void* scales, void* out,
-                          int K, int N, int splits, int per, void* stream) {
-  return tts::launch_qgemv<true>(x, x_f32, wq4, scales, out, K, N, splits, per, stream);
+                          int K, int N, int tile_n, int splits, int per, int rows, void* stream) {
+  return tts::launch_qgemv<true>(x, x_f32, wq4, scales, out, K, N, tile_n, splits, per, rows,
+                                  stream);
 }
 
 // x [M, K] bf16 (x_f32: f32); geometry from ops/qmatmul.py::gemm_plan, per

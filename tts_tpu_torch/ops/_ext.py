@@ -38,6 +38,7 @@ GEOMETRY = {
     "GEMV_CTAS_PER_SM": 2,    # the GEMVs: CTAs resident per SM (shared memory)
     "GEMV_MAX_X": 8192,       # the GEMVs: x elements one CTA stages (bf16), at most
     "GEMV_MAX_CLUSTER": 8,    # the GEMVs: K splits, one CTA each of a cluster, at most
+    "GEMV_SMALL_MAX_THREADS": 512,   # the GEMVs' small-call instance: threads per CTA, at most
     "G8_STAGES": 6,           # qgemm_int8: cp.async ring depth (32-row blocks)
     "G8_CTAS_PER_SM_8": 3,    # qgemm_int8: CTAs resident per SM, 8-token tile
     "G8_CTAS_PER_SM": 2,      # qgemm_int8: the same, 16- to 64-token tiles
@@ -59,13 +60,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types, in the order of csrc/*.cu's extern "C" API
 SIGNATURES = {
-    # x, x_f32, wq, scales, out, K, N, splits, per, stream
-    "qgemv_int8": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_f32, wq, scales, out, K, N, tile_n, splits, per, rows, stream
+    "qgemv_int8": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, x_f32, wq, scales, partial, out, M, K, N, m_tile, tile_n, splits,
     # per, stream
     "qgemm_int8": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, x_f32, wq4, scales, out, K, N, splits, per, stream
-    "qgemv_int4": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_f32, wq4, scales, out, K, N, tile_n, splits, per, rows, stream
+    "qgemv_int4": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # the same with wq4
     "qgemm_int4": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, k_scale, v_scale, pos, counters, part_m, part_l, part_acc,

@@ -16,7 +16,9 @@ Four hand-written Hopper kernels replace the TPU's Pallas kernels:
 `_qmm_kernel`) and `qgemv_int4` / `qgemm_int4` (csrc/qmatmul4.cu; were
 `_qmv4_kernel` / `_qmm4_kernel`).  The GEMVs serve M == 1 (every decode
 step) with x rounded to bf16, as the TPU kernels feed bf16 activations to
-the MXU, in one launch whose geometry `gemv_plan` sets; the GEMMs serve
+the MXU, in one launch whose geometry `gemv_plan` sets (of the kernel's
+cluster instance, or of its small-call instance for calls of at most
+4,194,304 weights: `.small_launches` counts those); the GEMMs serve
 M > 1 (prefill), both on the tensor cores in one kernel whose geometry
 `gemm_plan` sets: bf16 x as it is (one product), f32 x to f32 accuracy
 (split into two bf16 terms).  Each wrapper runs its
@@ -32,6 +34,7 @@ policy (`_pick_tiles`, `_auto_tile_n`, the `TTS_TPU_BLOCKDIAG_*` knobs).
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +49,12 @@ _GEOMETRY = _ext.GEOMETRY   # the kernels' launch geometry (nvcc gets it as -D d
 # the GEMVs: weight blocks a CTA takes at most where the column tiles alone
 # fill the card (gemv_plan)
 _GEMV_WAVE_BLOCKS = 48
+# the GEMVs' small-call instance (gemv_plan): calls of at most this many
+# weights (K * N) take it; its column tiles, narrowest first; the threads
+# a CTA is given where K allows
+_GEMV_SMALL_WEIGHTS = 1 << 22
+_GEMV_SMALL_TILES = (16, 32, 64, 128)
+_GEMV_SMALL_THREADS = 512
 # the GEMMs' M tiles (csrc/qmatmul.cuh launch_qgemm)
 _GEMM_M_TILES = (8, 16, 32, 64)
 # output columns dequantized at a time by the plain versions: the
@@ -226,14 +235,31 @@ def _check_cuda(name: str, x, w, scales, packed: bool) -> tuple[int, int]:
     return K, N
 
 
-def gemv_plan(K: int, N: int, sms: int, packed: bool) -> tuple[int, int, int]:
-    """(tile_n, splits, weight blocks per split) of one GEMV call
-    (`qgemv_int8`, or `qgemv_int4` when `packed`) at x [1, K] on a card of
-    `sms` SMs; the kernel's grid is (splits, N / tile_n column tiles), and
-    the splits of a column tile are one thread-block cluster.  A CTA takes
-    GEMV_TILE_N columns, and K splits into ranges of whole 32-row weight
-    blocks (packed blocks for int4: a packed row pairs x columns k and
-    K/2 + k), a power of two of them up to a cluster's worth:
+class GemvPlan(NamedTuple):
+    """One GEMV call's geometry (`gemv_plan`)."""
+    tile_n: int     # weight columns per CTA
+    splits: int     # CTAs per column tile (one cluster), each a range of K
+    per: int        # weight blocks (packed blocks for int4) per split
+    rows: int       # the small-call instance: weight rows per thread; 0: the cluster instance
+
+
+def gemv_plan(K: int, N: int, sms: int, packed: bool) -> GemvPlan:
+    """The geometry of one GEMV call (`qgemv_int8`, or `qgemv_int4` when
+    `packed`) at x [1, K] on a card of `sms` SMs, for the one of the
+    kernel's two instances that the call's shape takes: the small-call
+    instance (rows > 0) for calls of at most `_GEMV_SMALL_WEIGHTS` weights
+    (K * N) whose x a CTA can stage whole (Parler-TTS mini v1's linears,
+    a tp = 2 shard's k/v), else the cluster instance (rows 0)."""
+    return _gemv_small_plan(K, N, sms, packed) or _gemv_cluster_plan(K, N, sms, packed)
+
+
+def _gemv_cluster_plan(K: int, N: int, sms: int, packed: bool) -> GemvPlan:
+    """The cluster instance's geometry: the kernel's grid is (splits, N /
+    tile_n column tiles), and the splits of a column tile are one
+    thread-block cluster.  A CTA takes GEMV_TILE_N columns, and K splits
+    into ranges of whole 32-row weight blocks (packed blocks for int4: a
+    packed row pairs x columns k and K/2 + k), a power of two of them up to
+    a cluster's worth:
       - where the column tiles alone fill the card, only as far as keeps a
         CTA at `_GEMV_WAVE_BLOCKS` blocks at most (a long CTA leaves a long
         tail in the last wave);
@@ -258,7 +284,36 @@ def gemv_plan(K: int, N: int, sms: int, packed: bool) -> tuple[int, int, int]:
         raise ValueError(f"GEMV: K={K} needs {splits} splits of x, a cluster holds "
                          f"{_GEOMETRY['GEMV_MAX_CLUSTER']}")
     per = -(-nblk // splits)
-    return tile_n, -(-nblk // per), per
+    return GemvPlan(tile_n, -(-nblk // per), per, 0)
+
+
+def _gemv_small_plan(K: int, N: int, sms: int, packed: bool) -> GemvPlan | None:
+    """The small-call instance's geometry, or None where the call is too
+    large for it.  The column tile is the narrowest of `_GEMV_SMALL_TILES`
+    whose tiles fit on the card in one wave (the widest where none does):
+    the tiles alone spread the call over the SMs, with no K split across
+    CTAs to add through a cluster.  A CTA's threads each take 4 columns and
+    `rows` weight rows of one block: 32 rows, halved while the CTA has
+    fewer than `_GEMV_SMALL_THREADS` threads or not whole warps, so every
+    thread it launches holds weights, at most GEMV_SMALL_MAX_THREADS of
+    them.  On the H100 (PERF.md §6; gemv_timing.py --alternatives),
+    at Parler-TTS mini v1's three shapes and both formats, 16 columns ran
+    at or within noise of the fastest of 8-64 where the tiles allow it (8
+    read each 32-byte sector of a row from four SMs), and 512 threads
+    beat 128 and 256 at fc1 and fc2."""
+    if K * N > _GEMV_SMALL_WEIGHTS or K > _GEOMETRY["GEMV_MAX_X"]:
+        return None
+    nblk = K // (2 * QBLOCK if packed else QBLOCK)
+    most = _GEOMETRY["GEMV_SMALL_MAX_THREADS"]
+    tile_n = next((t for t in _GEMV_SMALL_TILES if -(-N // t) <= sms), _GEMV_SMALL_TILES[-1])
+    while tile_n > _GEMV_SMALL_TILES[0] and tile_n // 4 * nblk > most:
+        tile_n //= 2
+    rows, threads = QBLOCK, tile_n // 4 * nblk      # a thread per block and 4 columns
+    while rows > 1 and 2 * threads <= most and (threads < _GEMV_SMALL_THREADS or threads % 32):
+        rows, threads = rows // 2, threads * 2
+    if threads % 32 or threads > most:
+        return None
+    return GemvPlan(tile_n, 1, nblk, rows)
 
 
 def gemm_plan(M: int, K: int, N: int, sms: int, packed: bool) -> tuple[int, int, int, int]:
@@ -288,9 +343,10 @@ def gemm_plan(M: int, K: int, N: int, sms: int, packed: bool) -> tuple[int, int,
     return m_tile, tile_n, splits, per
 
 
-def _gemv(name: str, x, w, scales, packed: bool) -> torch.Tensor:
+def _gemv(name: str, x, w, scales, packed: bool) -> tuple[torch.Tensor, bool]:
     """One launch: the kernel reads x in bf16 or f32 (rounding it to bf16)
-    and adds the K splits inside the launch."""
+    and adds the K splits inside the launch.  Returns the output and
+    whether the small-call instance ran."""
     K, N = _check_cuda(name, x, w, scales, packed)
     if x.shape[0] != 1:
         raise ValueError(f"{name}: M must be 1, got {x.shape[0]}")
@@ -299,13 +355,13 @@ def _gemv(name: str, x, w, scales, packed: bool) -> torch.Tensor:
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: x must start 16-byte aligned (vector loads)")
-    _, splits, per = gemv_plan(K, N, _ext.sm_count(x.device.index), packed)
+    plan = gemv_plan(K, N, _ext.sm_count(x.device.index), packed)
     out = torch.empty((1, N), device=x.device, dtype=torch.float32)
     err = getattr(_ext.load(), name)(x.data_ptr(), x.dtype == torch.float32, w.data_ptr(),
-                                     scales.data_ptr(), out.data_ptr(), K, N, splits, per,
+                                     scales.data_ptr(), out.data_ptr(), K, N, *plan,
                                      _ext.stream_ptr(x))
     _ext.check(name, err)
-    return out
+    return out, plan.rows > 0
 
 
 def _gemm(name: str, x, w, scales, packed: bool) -> torch.Tensor:
@@ -333,8 +389,9 @@ def qgemv_int8(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch
     """x [1, K] @ dequant(wq, scales) -> [1, N] f32 (M == 1)."""
     if not x.is_cuda:
         return qgemv_int8_plain(x, wq, scales)
-    out = _gemv("qgemv_int8", x, wq, scales, packed=False)
+    out, small = _gemv("qgemv_int8", x, wq, scales, packed=False)
     qgemv_int8.launches += 1
+    qgemv_int8.small_launches += small
     return out
 
 
@@ -351,8 +408,9 @@ def qgemv_int4(x: torch.Tensor, wq4: torch.Tensor, scales: torch.Tensor) -> torc
     """x [1, K] @ dequant(wq4 [K/2, N], scales) -> [1, N] f32 (M == 1)."""
     if not x.is_cuda:
         return qgemv_int4_plain(x, wq4, scales)
-    out = _gemv("qgemv_int4", x, wq4, scales, packed=True)
+    out, small = _gemv("qgemv_int4", x, wq4, scales, packed=True)
     qgemv_int4.launches += 1
+    qgemv_int4.small_launches += small
     return out
 
 
@@ -369,6 +427,9 @@ qgemv_int8.launches = 0
 qgemm_int8.launches = 0
 qgemv_int4.launches = 0
 qgemm_int4.launches = 0
+# the GEMV launches that took the small-call instance (gemv_plan), of .launches
+qgemv_int8.small_launches = 0
+qgemv_int4.small_launches = 0
 
 
 def quantized_matmul(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

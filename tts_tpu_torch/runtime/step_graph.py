@@ -15,9 +15,10 @@ replays it.  `generator` is registered with the graph, so a replay draws
 from its state at that moment and advances it by what the captured draw
 consumed, as an eager step would: a runner reseeds it per request.  A
 replay adds what the capture launched to each kernel wrapper's
-`.launches`, so the counts stay what the card ran; the capture itself
-launches nothing.  A failed capture raises TTSError.  Without `capture`
-`run` calls the step: eager launches on the card, plain calls on the CPU.
+`.launches` (and the GEMVs' `.small_launches`), so the counts stay what
+the card ran; the capture itself launches nothing.  A failed capture
+raises TTSError.  Without `capture` `run` calls the step: eager launches
+on the card, plain calls on the CPU.
 
 `read_behind` is the sequential loops' host side: it runs a step, copies
 the step's static output slot to pinned host memory behind an event, and
@@ -39,8 +40,11 @@ from tts_tpu_torch.runtime.api import TTSError
 from tts_tpu_torch.utils import trace
 
 # the kernel wrappers whose `.launches` a graph replay adds to (what the
-# capture launched: a replay calls no wrapper)
+# capture launched: a replay calls no wrapper), and the GEMVs' counts of
+# their small-call instance (`.small_launches`)
 KERNELS = (qgemv_int8, qgemm_int8, qgemv_int4, qgemm_int4, flash_decode, prefix_attention)
+COUNTERS = tuple((k, "launches") for k in KERNELS) + tuple(
+    (k, "small_launches") for k in (qgemv_int8, qgemv_int4))
 
 
 class CapturedStep:
@@ -103,7 +107,7 @@ class CapturedStep:
         with torch.cuda.stream(side):
             self._step()
         main.wait_stream(side)
-        before = [k.launches for k in KERNELS]
+        before = [getattr(k, a) for k, a in COUNTERS]
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
@@ -114,10 +118,10 @@ class CapturedStep:
             raise TTSError(f"{self.label}: capturing the decode step {self.key} failed: "
                            f"{type(e).__name__}: {e}") from e
         finally:
-            captured = [k.launches - b for k, b in zip(KERNELS, before)]
-            for k, b in zip(KERNELS, before):
-                k.launches = b          # the capture launched nothing on the card
-        self._launches = [(k, n) for k, n in zip(KERNELS, captured) if n]
+            captured = [getattr(k, a) - b for (k, a), b in zip(COUNTERS, before)]
+            for (k, a), b in zip(COUNTERS, before):
+                setattr(k, a, b)        # the capture launched nothing on the card
+        self._launches = [(k, a, n) for (k, a), n in zip(COUNTERS, captured) if n]
         self.graph = graph
 
     def run(self):
@@ -126,8 +130,8 @@ class CapturedStep:
         with torch.inference_mode():
             if self.graph is not None:
                 self.graph.replay()
-                for k, n in self._launches:
-                    k.launches += n
+                for k, a, n in self._launches:
+                    setattr(k, a, getattr(k, a) + n)
             elif self.capture:
                 self._capture()
             else:
